@@ -6,20 +6,28 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name and power limit from nvidia-smi, cross-checked against
    torch.cuda.get_device_name;
-2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc;
+2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc, its two
+   libraries (without and with the +I term) side by side;
 3. hold the kernel against its plain PyTorch version on the card, in f32
    and in f64, for both call shapes (blocked: full stores + per-pair
    windows, with the sumtable in shared and in device memory; per-pair:
    pre-sliced windows), on 4096 (query, edge) pairs drawn from the main
-   path's reference state (each query's top preplacement candidates);
+   path's reference state (each query's top preplacement candidates); the
+   kernel's per-pair counters (K5) against the plain version's;
+3b. the same for the +I kernel (K2 blocked, K4 per-pair) on the +I cell's
+   pairs, with the share of in-span (pair, site) cells whose invariant
+   term is > 0;
 4. the main path: ``epa_ng_tpu_torch.cli.main`` places 8192 evolved
    queries on a 512-taxon, 512-site tree under
    GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}, chunk 1024
    (the JAX package's bench headline shape), with the kernel's launch
-   count reset just before and read just after;
+   counts reset just before and read just after;
+4b. the +I main path: the same shape with 20% of the columns made
+   invariant (:func:`with_invariant_sites`) under the same model +I{0.2};
 5. correctness on a small input: the card's f32 placements against the
-   port's own f64 CPU run (plain paths) of the same files;
-6. the main path once more under torch.profiler (device time by kernel,
+   port's own f64 CPU run (plain paths) of the same files, under the main
+   model and under +IC on data with invariant columns;
+6. both main paths once more under torch.profiler (device time by kernel,
    busy share).
 
 ``python3 chip_smoke.py --fmad-ab`` runs phases 1-2 and then times the
@@ -42,12 +50,19 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "chiprun_out", "chip_smoke")
+FREQS = (0.27, 0.23, 0.24, 0.26)
 MODEL = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
+PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
+              "+G4{0.6}")
+IC_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+IC"
+            "+G4{0.6}")
+INVARIANT_SHARE = 0.2    # of the +I cells' columns
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 LOGL_ABS_TOL = 0.05      # f32 sums over hundreds of sites, other order
 LEN_Q90_TOL = 0.01       # lengths on logl-sharp pairs (test_pallas rule)
+COUNTS_EQUAL_MIN = 0.99  # kernel counters equal to the plain version's
 
 
 class SmokeFailure(Exception):
@@ -69,6 +84,30 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str) -> list:
+    """nvcc's -Xptxas -v output as one entry per kernel instantiation:
+    "R<rates> <shared|device> <plain|pinv>: <n> regs, <b> B spill"."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*blo_newton_kernel"
+                      r"ILi(\d+)ELb([01])ELb([01])E", ln)
+        if m:
+            home = "device" if m.group(2) == "1" else "shared"
+            flavour = "pinv" if m.group(3) == "1" else "plain"
+            cur, spill = f"R{m.group(1)} {home} {flavour}", None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if cur and m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur and m:
+            out.append(f"{cur}: {m.group(1)} regs, {spill} B spill")
+            cur = None
+    return sorted(out, key=lambda s: (int(s.split()[0][1:]), s))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
     after one warm-up run."""
@@ -84,12 +123,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_data(n_taxa, sites, n_queries, seed, outdir):
-    """Evolved reference + queries written as tree/FASTA files."""
-    from epa_ng_tpu_torch.utils.synth import evolved_dataset, write_fasta
-    tree, ref, qry, true_edges = evolved_dataset(
-        n_taxa=n_taxa, sites=sites, n_queries=n_queries, seed=seed,
-        model_str=MODEL)
+def write_data(tree, ref, qry, outdir):
+    """tree.nwk, ref.fasta and query.fasta in ``outdir``; their paths."""
+    from epa_ng_tpu_torch.utils.synth import write_fasta
     os.makedirs(outdir, exist_ok=True)
     paths = tuple(os.path.join(outdir, n)
                   for n in ("tree.nwk", "ref.fasta", "query.fasta"))
@@ -97,27 +133,81 @@ def make_data(n_taxa, sites, n_queries, seed, outdir):
         f.write(tree.plain_newick() + "\n")
     write_fasta(ref, paths[1])
     write_fasta(qry, paths[2])
+    return paths
+
+
+def make_data(n_taxa, sites, n_queries, seed, outdir):
+    """Evolved reference + queries written as tree/FASTA files."""
+    from epa_ng_tpu_torch.utils.synth import evolved_dataset
+    tree, ref, qry, true_edges = evolved_dataset(
+        n_taxa=n_taxa, sites=sites, n_queries=n_queries, seed=seed,
+        model_str=MODEL)
+    paths = write_data(tree, ref, qry, outdir)
     return (tree, ref, qry, true_edges), paths
 
 
-def main_path_pairs(data, device, n_pairs):
+def with_invariant_sites(ref, qry, freqs, share, seed):
+    """Copies of the alignments ``ref`` and ``qry`` in which a ``share`` of
+    the columns (drawn with numpy from ``seed``) are invariant: every
+    reference row holds one state there, drawn from ``freqs`` (A, C, G, T),
+    and every query's non-gap character in that column is set to the same
+    state. Evolved data has few invariant columns of its own (none at 512
+    taxa), so without this a +I model's invariant term is 0 everywhere.
+    Works on either package's MSA. Returns (ref, qry, columns)."""
+    import numpy as np
+    as_arr = lambda s: np.frombuffer(s.sequence.encode(), np.uint8).copy()
+    ref_rows = [(s.header, as_arr(s)) for s in ref]
+    S = len(ref_rows[0][1])
+    rng = np.random.default_rng(seed)
+    cols = np.sort(rng.choice(S, size=int(round(share * S)), replace=False))
+    p = np.asarray(freqs, np.float64)
+    states = np.frombuffer(b"ACGT", np.uint8)[
+        rng.choice(4, size=len(cols), p=p / p.sum())]
+    gaps = np.frombuffer(b"-.?", np.uint8)
+
+    def rebuild(msa, rows, query):
+        out = type(msa)()
+        for header, a in rows:
+            if query:
+                on = ~np.isin(a[cols], gaps)
+                a[cols[on]] = states[on]
+            else:
+                a[cols] = states
+            out.append(header, a.tobytes().decode())
+        return out
+
+    return (rebuild(ref, ref_rows, False),
+            rebuild(qry, [(s.header, as_arr(s)) for s in qry], True), cols)
+
+
+def make_pinv_data(data, seed, outdir):
+    """The +I cell's data: ``data`` with INVARIANT_SHARE of its columns
+    made invariant, written as files."""
+    tree, ref, qry, true_edges = data
+    ref, qry, _ = with_invariant_sites(ref, qry, FREQS, INVARIANT_SHARE,
+                                       seed)
+    return (tree, ref, qry, true_edges), write_data(tree, ref, qry, outdir)
+
+
+def main_path_pairs(data, device, n_pairs, model=MODEL):
     """(query, edge) pairs of the main path's Newton stage: each query's 4
     best preplacement candidates, sorted by range begin, on the engine's
-    f32 reference state."""
+    f32 reference state. With a +I model, also the invariant inputs."""
     import numpy as np
     import torch
 
     from epa_ng_tpu_torch.core.engine import PlacementEngine
     from epa_ng_tpu_torch.models import Model
+    from epa_ng_tpu_torch.ops import blo_kernel as bk
     from epa_ng_tpu_torch.utils.options import Options
 
     tree, ref, qry, _ = data
-    eng = PlacementEngine(tree, ref, Model.from_string(MODEL),
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
                           Options(compute_dtype="f32"), device=device)
     n_q = n_pairs // 4
     ec = eng.encode_msa(_head(qry, n_q))
     codes, ranges = ec.codes, ec.ranges
-    tQ, _ = eng._query_tensors_codes(codes)
+    tQ, invq = eng._query_tensors_codes(codes)
     scores = eng.preplace(codes, ranges)
     top = np.argsort(-scores, axis=1, kind="stable")[:, :4]
     pq = np.repeat(np.arange(n_q), 4).astype(np.int32)
@@ -128,10 +218,21 @@ def main_path_pairs(data, device, n_pairs):
     sp = ranges[pq, 1].astype(np.int32)
     d = lambda x: torch.as_tensor(np.asarray(x), device=eng.device)
     e_t, q_t, b_t, s_t = d(pe), d(pq), d(pb), d(sp)
+    pinv = eng.model.pinv > 0
     return dict(eng=eng, tQ=tQ, e=e_t, q=q_t, b=b_t, s=s_t, sp=sp,
-                orig=eng.blo.lengths[e_t.long()],
+                orig=eng.blo.lengths[e_t.long()], pinv=pinv,
+                invq=invq if pinv else None,
+                omp=bk._omp(eng.consts, torch.float32) if pinv else None,
                 skip=torch.zeros(len(pe), dtype=torch.float32,
                                  device=eng.device))
+
+
+def _pinv_kw(pr, dt):
+    """+I keyword arguments of blo_newton(_plain) in type ``dt``."""
+    if not pr["pinv"]:
+        return {}
+    return dict(invq=pr["invq"].to(dt), ls=pr["eng"].blo.ls.to(dt),
+                omp=pr["omp"].to(dt))
 
 
 def plain_runs(pr, width, counters=False, f64=True):
@@ -148,7 +249,7 @@ def plain_runs(pr, width, counters=False, f64=True):
         out.append(bk.blo_newton_plain(
             bk._kernel_scalars(eng.consts, dt), w(blo.tU), w(blo.tV),
             w(pr["tQ"]), *ids, w(pr["orig"]), w(pr["skip"]), width,
-            counters=counters and dt == torch.float32))
+            counters=counters and dt == torch.float32, **_pinv_kw(pr, dt)))
     return out
 
 
@@ -176,58 +277,103 @@ def compare(k, p32, p64):
                 distal_q90=q90[1])
 
 
-def kernel_parity(data, device, n_pairs=4096, reps=3):
-    """Phase 3: kernel vs plain version on the card, both call shapes, and
-    the blocked shape once more with the sumtable in device memory."""
+def compare_counts(k_smooth, k_iters, p_smooth, p_iters):
+    """The kernel's per-pair counters (K5) against the plain version's."""
+    import numpy as np
+    ks, ki = (np.asarray(t.cpu().numpy(), np.int64)
+              for t in (k_smooth, k_iters))
+    ps, pi = (np.asarray(t.cpu().numpy(), np.int64)
+              for t in (p_smooth, p_iters))
+    same = (ks == ps) & (ki == pi)
+    return dict(counts_equal=float(same.mean()),
+                max_abs_err_iters=int(np.abs(ki - pi).max()),
+                mean_smoothings=float(ks.mean()),
+                mean_newton_iters=float(ki.mean()))
+
+
+def bound(sp, counts, R, has_pinv, counters=False):
+    """The least time the card could take for these pairs' work (ms), and
+    what bounds it: bytes over the memory rate or operations over the f32
+    rate, both counted from this run's spans and the kernel's own executed
+    smoothings and Newton iterations."""
+    from epa_ng_tpu_torch.ops import blo_kernel as bk
+    smooth, iters = (t.cpu().numpy() for t in counts)
+    ops = bk.blo_op_count(sp, smooth, iters, R, has_pinv)
+    nbytes = bk.blo_byte_count(sp, R, has_pinv, counters)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                flops=ops, bytes=nbytes)
+
+
+def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
+    """Phases 3 and 3b: the kernel vs its plain version on the card, both
+    call shapes, the blocked shape once more with the sumtable in device
+    memory, and the kernel's counters; with a +I ``model`` the +I kernel
+    on data whose invariant term bites."""
     import numpy as np
     import torch
 
     from epa_ng_tpu_torch.ops import blo_kernel as bk
 
-    pr = main_path_pairs(data, device, n_pairs)
+    pr = main_path_pairs(data, device, n_pairs, model)
     eng, blo, tQ = pr["eng"], pr["eng"].blo, pr["tQ"]
     S = eng.num_sites
     sp, e_t, q_t, b_t, s_t = pr["sp"], pr["e"], pr["q"], pr["b"], pr["s"]
-    orig = pr["orig"]
+    orig, pinv = pr["orig"], pr["pinv"]
     Wk = bk.kernel_width(sp)
     R = int(eng.consts.rates.shape[0])
     RK, K = blo.tU.shape[1], tQ.shape[1]
     cuda = device == "cuda"
+    inv_kw = dict(invq=pr["invq"], ls=blo.ls) if pinv else {}
+    res = {}
 
     # --- blocked call shape (the fused step's and the exact path's)
     site = torch.arange(S, device=eng.device)
     full = ((site[None] >= b_t[:, None])
-            & (site[None] < (b_t + s_t)[:, None])).float()
-    ls_sum = (full * blo.ls[e_t.long()]).sum(1)
-    blocked = lambda w: bk.blo_optimize_batch_kernel_blocked(
-        eng.consts, blo.tU, blo.tV, tQ, e_t, q_t, b_t, s_t, orig, ls_sum, w)
+            & (site[None] < (b_t + s_t)[:, None]))
+    ls_sum = (full.float() * blo.ls[e_t.long()]).sum(1)
+    blocked = lambda w, counters=False: bk.blo_optimize_batch_kernel_blocked(
+        eng.consts, blo.tU, blo.tV, tQ, e_t, q_t, b_t, s_t, orig, ls_sum, w,
+        counters=counters, **inv_kw)
     p32, p64 = plain_runs(pr, Wk, counters=True)
     shift = lambda p: (p[0] + ls_sum.to(p[0].dtype), p[1], p[2])
-    kout = blocked(Wk)
-    res_b = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
-    res_b["ms"] = cuda_ms(lambda: blocked(Wk), reps) if cuda else None
-    res_b["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, f64=False), 1)
-                         if cuda else None)
-    n_smooth, n_iter = p32[5].cpu().numpy(), p32[6].cpu().numpy()
-    ops = bk.blo_op_count(sp, n_smooth, n_iter, R)
-    nbytes = (float(sp.sum()) * (2 * RK + K) * 4     # windows, read once
-              + len(sp) * (4 * 4 + 2 * 4)             # ids, windows, scalars
-              + len(sp) * 5 * 4)                      # outputs
-    res_b.update(pairs=len(sp), width=Wk, mean_span=float(sp.mean()),
-                 mean_smoothings=float(n_smooth.mean()),
-                 mean_newton_iters=float(n_iter.mean()), flops=ops,
-                 bytes=nbytes)
-    bound_b = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_FLOPS
-                else "operations")
+    kout = blocked(Wk, counters=True)
+    r = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
+    r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
+    r.update(bound(sp, kout[6:], R, pinv))
+    r["ms"] = cuda_ms(lambda: blocked(Wk), reps) if cuda else None
+    r["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, f64=False), 1)
+                     if cuda else None)
+    r.update(pairs=len(sp), width=Wk, mean_span=float(sp.mean()))
+    res["blocked"] = r
+    if pinv:
+        # the invariant term over the in-span (pair, site) cells
+        pv = torch.exp(pr["invq"][q_t.long()] - blo.ls[e_t.long()])[full]
+        res["pv"] = dict(share_positive=float((pv > 0).float().mean()),
+                         share_inf=float(torch.isinf(pv).float().mean()),
+                         max=float(pv[torch.isfinite(pv)].max()))
+    else:
+        # K5: the counted launch against the plain version with counters
+        kc = dict(compare((kout[0], kout[1], kout[3]), shift(p32),
+                          shift(p64)))
+        kc.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
+        kc.update(bound(sp, kout[6:], R, pinv, counters=True))
+        kc["ms"] = (cuda_ms(lambda: blocked(Wk, counters=True), reps)
+                    if cuda else None)
+        kc["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, counters=True,
+                                                     f64=False), 1)
+                          if cuda else None)
+        res["counted"] = kc
 
     # --- blocked again, sumtable in device memory (a stride wider than
     # shared memory takes; same pairs, so the same plain results)
-    Wg = bk.max_shared_sites(RK) + 32
+    Wg = bk.max_shared_sites(RK, pinv) + 32
     kout = blocked(Wg)
-    res_g = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
-    res_g["ms"] = cuda_ms(lambda: blocked(Wg), reps) if cuda else None
-    res_g["width"] = Wg
+    r = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
+    r["ms"] = cuda_ms(lambda: blocked(Wg), reps) if cuda else None
+    r["width"] = Wg
+    res["blocked_device_memory"] = r
 
     # --- per-pair call shape (pre-sliced windows)
     W = 64
@@ -243,39 +389,50 @@ def kernel_parity(data, device, n_pairs=4096, reps=3):
     tv = blo.tV[e_l[:, None, None], rk, idx[:, None, :]]
     tq = tQ[q_l[:, None, None], kq, idx[:, None, :]]
     lw = blo.ls[e_l[:, None], idx]
+    iv = (pr["invq"][q_l[:, None], idx] if pinv
+          else torch.full_like(lw, -torch.inf))
     local = (b_t - wb).long()
     w = torch.arange(W, device=eng.device)
     mask = ((w[None] >= local[:, None])
             & (w[None] < (local + s_t)[:, None])).float()
-    per_pair = lambda: bk.blo_optimize_batch_kernel(
-        eng.consts, tu, tv, tq, lw, mask, orig)
-    kout = per_pair()
+    per_pair = lambda counters=False: bk.blo_optimize_batch_kernel(
+        eng.consts, tu, tv, tq, lw, mask, orig, iv, has_pinv=pinv,
+        counters=counters)
+    kout = per_pair(counters=True)
     lw_sum = (mask * lw).sum(1)
-    res_p = compare((kout[0], kout[1], kout[3]),
-                    *[(p[0] + lw_sum.to(p[0].dtype), p[1], p[2])
-                      for p in (p32, p64)])
-    res_p["ms"] = cuda_ms(per_pair, reps) if cuda else None
-    res_p["width"] = W
+    r = compare((kout[0], kout[1], kout[3]),
+                *[(p[0] + lw_sum.to(p[0].dtype), p[1], p[2])
+                  for p in (p32, p64)])
+    r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
+    r.update(bound(sp, kout[6:], R, pinv))
+    r["ms"] = cuda_ms(per_pair, reps) if cuda else None
+    ids = torch.arange(len(sp), dtype=torch.int32, device=eng.device)
+    pinv_pp = (dict(invq=iv, ls=lw, omp=pr["omp"]) if pinv else {})
+    r["plain_ms"] = (cuda_ms(lambda: bk.blo_newton_plain(
+        bk._kernel_scalars(eng.consts, torch.float32), tu, tv, tq, ids, ids,
+        local, s_t, orig, pr["skip"], W, **pinv_pp), 1) if cuda else None)
+    r["width"] = W
+    res["per_pair"] = r
     del eng, pr
-    return res_b, res_g, res_p, bound_b, bound_by
+    return res
 
 
 def fmad_ab(data, n_pairs=16384, rounds=3, reps=20):
     """The kernel built with and without nvcc's mul+add contraction (FMA),
     on the main path's pairs: times taken in turns within this call, and
     each build's agreement with the plain version in f32 and in f64."""
-    import threading
+    from concurrent.futures import ThreadPoolExecutor
 
     from epa_ng_tpu_torch.ops import blo_kernel as bk
 
     builds = {fmad: bk._BloNewton(fmad=fmad) for fmad in (False, True)}
-    threads = [threading.Thread(target=k.build) for k in builds.values()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for k in builds.values():
-        check(k._lib is not None, "a kernel build failed:\n" + k.build_log)
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(k.build) for k in builds.values()]
+        try:
+            for fut in futs:
+                fut.result()
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from e
     pr = main_path_pairs(data, "cuda", n_pairs)
     eng, blo = pr["eng"], pr["eng"].blo
     Wk = bk.kernel_width(pr["sp"])
@@ -318,10 +475,10 @@ def read_jplace(path):
     return out
 
 
-def run_cli(paths, outdir, device, chunk, extra=()):
+def run_cli(paths, outdir, device, chunk, extra=(), model=MODEL):
     from epa_ng_tpu_torch import cli
     argv = ["--tree", paths[0], "--ref-msa", paths[1], "--query", paths[2],
-            "--model", MODEL, "--outdir", outdir, "--redo",
+            "--model", model, "--outdir", outdir, "--redo",
             "--chunk-size", str(chunk), "--device", device, *extra]
     t0 = time.perf_counter()
     rc = cli.main(argv)
@@ -330,55 +487,66 @@ def run_cli(paths, outdir, device, chunk, extra=()):
     return dict(cli.LAST_RUN_STATS), wall
 
 
-def main_path(paths, n_queries, true_edges, device):
-    """Phase 4: the CLI over the full shape; launches counted around it."""
+def main_path(paths, n_queries, true_edges, device, model=MODEL,
+              name="main"):
+    """Phases 4 and 4b: the CLI over the full shape; the kernel's launch
+    counts set to 0 just before and read just after."""
     import numpy as np
 
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
-    outdir = os.path.join(OUT, "main")
-    blo_newton.launches = 0
-    stats, wall = run_cli(paths, outdir, device, chunk=1024)
-    launches = blo_newton.launches
+    outdir = os.path.join(OUT, name)
+    blo_newton.reset_counts()
+    stats, wall = run_cli(paths, outdir, device, chunk=1024, model=model)
+    counts = blo_newton.counts()
     pl = read_jplace(os.path.join(outdir, "epa_result.jplace"))
     check(len(pl) == n_queries,
-          f"jplace places {len(pl)} of {n_queries} queries")
+          f"{name}: jplace places {len(pl)} of {n_queries} queries")
     vals = np.array([[r["likelihood"], r["like_weight_ratio"],
                       r["pendant_length"], r["distal_length"]]
                      for rows in pl.values() for r in rows])
-    check(np.isfinite(vals).all(), "non-finite values in the jplace")
-    check(all(len(rows) >= 1 for rows in pl.values()), "empty placement")
+    check(np.isfinite(vals).all(), f"{name}: non-finite values in the jplace")
+    check(all(len(rows) >= 1 for rows in pl.values()),
+          f"{name}: empty placement")
     best = np.array([pl[f"Q{i}"][0]["edge_num"] for i in range(n_queries)])
-    stats.update(cli_wall_s=wall, launches=launches,
+    pairs = max(stats["newton_pairs"], 1)
+    stats.update(cli_wall_s=wall, **counts,
                  qps=stats["reads"] / stats["placing_s"],
-                 top_is_true_edge=float((best == true_edges).mean()))
+                 top_is_true_edge=float((best == true_edges).mean()),
+                 mean_smoothings=stats["newton_smoothings"] / pairs,
+                 mean_newton_iters=stats["newton_iters"] / pairs)
     return stats
 
 
-def small_reference(device):
+def small_reference(device, model=MODEL, invariant_share=0.0, name="small"):
     """Phase 5: the card's f32 runs against the port's f64 CPU runs of the
     same files: the default heuristic on 256 queries, and --no-heur (every
     pair through the exact path's kernel slabs) on 64 of them. Short reads
     often tie exactly between edges that meet at a node, so a top edge
     counts as agreeing when the f64 run scores it within 1e-5 relative of
-    its own best; the best logl itself must agree everywhere."""
+    its own best; the best logl itself must agree everywhere. With an
+    ``invariant_share`` that share of the columns is made invariant."""
     import numpy as np
     from epa_ng_tpu_torch.utils.synth import write_fasta
-    (_, _, qry, _), paths = make_data(64, 200, 256, 5,
-                                      os.path.join(OUT, "small"))
-    few = os.path.join(OUT, "small", "query64.fasta")
+    outdir = os.path.join(OUT, name)
+    (tree, ref, qry, _), paths = make_data(64, 200, 256, 5, outdir)
+    if invariant_share:
+        ref, qry, _ = with_invariant_sites(ref, qry, FREQS,
+                                           invariant_share, 5)
+        paths = write_data(tree, ref, qry, outdir)
+    few = os.path.join(outdir, "query64.fasta")
     write_fasta(_head(qry, 64), few)
     out = {}
-    for name, qpath, extra, n in (("dyn", paths[2], (), 256),
-                                  ("noheur", few, ("--no-heur",), 64)):
+    for cfg, qpath, extra, n in (("dyn", paths[2], (), 256),
+                                 ("noheur", few, ("--no-heur",), 64)):
         runs = []
         for dev in (device, "cpu"):
-            d = os.path.join(OUT, "small", f"{name}_{dev}")
+            d = os.path.join(outdir, f"{cfg}_{dev}")
             run_cli((paths[0], paths[1], qpath), d, dev, chunk=256,
-                    extra=extra)
+                    extra=extra, model=model)
             runs.append(read_jplace(os.path.join(d, "epa_result.jplace")))
         a, b = runs
         check(a.keys() == b.keys() and len(a) == n,
-              f"small {name} run lost queries")
+              f"{name} {cfg} run lost queries")
         best = lambda rows: max(r["likelihood"] for r in rows)
 
         def agrees(q):
@@ -388,26 +556,26 @@ def small_reference(device):
 
         tie = float(np.mean([agrees(q) for q in a]))
         rel = max(abs(best(a[q]) - best(b[q])) / abs(best(b[q])) for q in a)
-        check(tie >= 0.99, f"small {name}: top placements agree (up to "
+        check(tie >= 0.99, f"{name} {cfg}: top placements agree (up to "
               f"ties) on {tie:.3f} < 0.99")
-        check(rel <= 1e-5, f"small {name}: best logl rel diff {rel:.3g}")
-        out[name] = dict(top_edge_identical=float(np.mean(
+        check(rel <= 1e-5, f"{name} {cfg}: best logl rel diff {rel:.3g}")
+        out[cfg] = dict(top_edge_identical=float(np.mean(
             [a[q][0]["edge_num"] == b[q][0]["edge_num"] for q in a])),
             top_edge_up_to_ties=tie, max_rel_best_logl=rel)
     return out
 
 
-def profile_main(paths, device):
-    """Phase 6: the main path once more under torch.profiler: device time
-    by kernel and the device's busy share of the CLI run (reference build
-    + placement; profiling adds host overhead, so the share is a lower
-    bound on the unprofiled run's)."""
+def profile_main(paths, device, model=MODEL, name="profiled"):
+    """Phase 6: a main path once more under torch.profiler: device time by
+    kernel and the device's busy share of the CLI run (reference build +
+    placement; profiling adds host overhead, so the share is a lower bound
+    on the unprofiled run's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stats, wall = run_cli(paths, os.path.join(OUT, "profiled"), device,
-                              chunk=1024)
+        stats, wall = run_cli(paths, os.path.join(OUT, name), device,
+                              chunk=1024, model=model)
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
     # device-side (kernel, memcpy) events only: the CPU ops that launched
@@ -420,6 +588,31 @@ def profile_main(paths, device):
                 busy_share=(total_ms / 1e3 / wall if total_ms else None),
                 top_kernels=[[e.key[:60], dev_us(e) / 1e3, e.count]
                              for e in top])
+
+
+def check_parity(tag, res):
+    for name, r in res.items():
+        if name == "pv":
+            continue
+        check(r["max_abs_err"] <= LOGL_ABS_TOL,
+              f"{tag} {name}: logl max abs err {r['max_abs_err']}")
+        check(max(r["pendant_q90"], r["distal_q90"]) <= LEN_Q90_TOL,
+              f"{tag} {name}: length q90 {r['pendant_q90']}, "
+              f"{r['distal_q90']}")
+        if "counts_equal" in r:
+            check(r["counts_equal"] >= COUNTS_EQUAL_MIN,
+                  f"{tag} {name}: kernel counters equal the plain "
+                  f"version's on {r['counts_equal']:.4f} of pairs")
+
+
+def kernel_entry(name, replaces, launches, r, **extra):
+    """One entry of the ``kernels`` line."""
+    return {"name": name, "route": "cuda",
+            "source": "epa_ng_tpu_torch/csrc/blo_newton.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, **extra}
 
 
 def main(argv=()) -> int:
@@ -439,6 +632,7 @@ def main(argv=()) -> int:
               f"({e})", file=sys.stderr)
         return 1
     try:
+        t_start = time.perf_counter()
         # phase 1: the card
         smi = card_line()
         name = torch.cuda.get_device_name(0)
@@ -447,79 +641,125 @@ def main(argv=()) -> int:
         print(f"card: {smi} | torch: {name} | torch {torch.__version__} "
               f"cuda {torch.version.cuda}", flush=True)
 
-        # phase 2: build
+        if "--fmad-ab" in argv:
+            data, _ = make_data(512, 512, 8192, 0, os.path.join(OUT, "data"))
+            res = fmad_ab(data)
+            print("fmad a/b: " + json.dumps(res), flush=True)
+            print(smi)
+            return 0
+
+        # phase 2: build both libraries side by side
         t0 = time.perf_counter()
-        blo_newton.build()
+        try:
+            blo_newton.build_all()
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from e
         build_s = time.perf_counter() - t0
-        ptxas = [ln.strip() for ln in blo_newton.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"build: {build_s:.2f} s; ptxas: {ptxas[:4]}", flush=True)
+        ptxas = [s for log in blo_newton.build_logs.values()
+                 for s in ptxas_summary(log)]
+        print(f"build: {build_s:.2f} s (both libraries); ptxas: "
+              f"{json.dumps(ptxas)}", flush=True)
 
         # data (set-up)
         t0 = time.perf_counter()
         n_queries = 8192
         data, paths = make_data(512, 512, n_queries, 0,
                                 os.path.join(OUT, "data"))
-        print(f"data: 512 taxa x 512 sites, {n_queries} queries in "
+        pdata, ppaths = make_pinv_data(data, 0,
+                                       os.path.join(OUT, "data_pinv"))
+        print(f"data: 512 taxa x 512 sites, {n_queries} queries, and the "
+              f"+I copy with {INVARIANT_SHARE:.0%} invariant columns in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-        if "--fmad-ab" in argv:
-            res = fmad_ab(data)
-            print("fmad a/b: " + json.dumps(res), flush=True)
-            print(smi)
-            return 0
+        # phase 3: kernel vs plain version, counters (K1/K3, K5)
+        par = kernel_parity(data, "cuda")
+        for k, v in par.items():
+            print(f"parity {k}: " + json.dumps(v), flush=True)
+        check_parity("parity", par)
 
-        # phase 3: kernel vs plain version
-        res_b, res_g, res_p, bound_ms, bound_by = kernel_parity(data, "cuda")
-        print("parity blocked: " + json.dumps(res_b), flush=True)
-        print("parity blocked, sumtable in device memory: "
-              + json.dumps(res_g), flush=True)
-        print("parity per-pair: " + json.dumps(res_p), flush=True)
-        for name_, r in (("blocked", res_b), ("blocked/device-memory", res_g),
-                         ("per-pair", res_p)):
-            check(r["max_abs_err"] <= LOGL_ABS_TOL,
-                  f"{name_}: logl max abs err {r['max_abs_err']}")
-            check(max(r["pendant_q90"], r["distal_q90"]) <= LEN_Q90_TOL,
-                  f"{name_}: length q90 {r['pendant_q90']}, "
-                  f"{r['distal_q90']}")
+        # phase 3b: the +I kernel (K2 blocked, K4 per-pair)
+        ppar = kernel_parity(pdata, "cuda", model=PINV_MODEL)
+        for k, v in ppar.items():
+            print(f"+I parity {k}: " + json.dumps(v), flush=True)
+        check_parity("+I parity", ppar)
+        check(ppar["pv"]["share_positive"] > 0,
+              "+I parity: the invariant term is 0 on every in-span cell")
 
         # phase 4: the main path
         stats = main_path(paths, n_queries, data[3], "cuda")
         print("main path: " + json.dumps(stats), flush=True)
         check(stats["launches"] > 0, "the main path never launched "
               "the CUDA kernel")
+        check(stats["pinv_launches"] == 0, "the main path ran the +I kernel")
+        check(stats["counted_launches"] == stats["launches"],
+              "the main path launched the kernel without its counters")
 
-        # phase 5: small-input reference
+        # phase 4b: the +I main path
+        pstats = main_path(ppaths, n_queries, pdata[3], "cuda",
+                           model=PINV_MODEL, name="main_pinv")
+        print("+I main path: " + json.dumps(pstats), flush=True)
+        check(pstats["pinv_launches"] > 0, "the +I main path never "
+              "launched the +I kernel")
+        check(pstats["pinv_launches"] == pstats["launches"],
+              "the +I main path launched the kernel without +I")
+        check(pstats["counted_launches"] == pstats["launches"],
+              "the +I main path launched the kernel without its counters")
+
+        # phase 5: small-input references
         small = small_reference("cuda")
         print("small reference: " + json.dumps(small), flush=True)
+        small_ic = small_reference("cuda", model=IC_MODEL,
+                                   invariant_share=INVARIANT_SHARE,
+                                   name="small_ic")
+        print("small reference +IC: " + json.dumps(small_ic), flush=True)
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
         print("profile: " + json.dumps(prof), flush=True)
+        pprof = profile_main(ppaths, "cuda", model=PINV_MODEL,
+                             name="profiled_pinv")
+        print("+I profile: " + json.dumps(pprof), flush=True)
 
-        kernels = [{
-            "name": "blo_newton",
-            "route": "cuda",
-            "source": "epa_ng_tpu_torch/csrc/blo_newton.cu",
-            "replaces": "epa_ng_tpu/ops/pallas_blo.py:117",
-            "also_replaces": "epa_ng_tpu/ops/pallas_blo.py:65",
-            "launches": stats["launches"],
-            "max_abs_err": res_b["max_abs_err"],
-            "ms": res_b["ms"],
-            "plain_ms": res_b["plain_ms"],
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "parity": {"blocked": res_b, "blocked_device_memory": res_g,
-                       "per_pair": res_p,
-                       "logl_abs_tol": LOGL_ABS_TOL,
-                       "length_q90_tol": LEN_Q90_TOL},
-        }]
-        for sub in ("data", "small", "profiled"):
+        tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
+        kernels = [
+            kernel_entry(
+                "blo_newton", "epa_ng_tpu/ops/pallas_blo.py:117",
+                stats["launches"], par["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                parity={"blocked": par["blocked"],
+                        "blocked_device_memory":
+                            par["blocked_device_memory"],
+                        "per_pair": par["per_pair"], **tol}),
+            kernel_entry(
+                "blo_newton_pinv (blocked)",
+                "epa_ng_tpu/ops/pallas_blo.py:174",
+                pstats["pinv_launches"], ppar["blocked"],
+                parity={"blocked": ppar["blocked"],
+                        "blocked_device_memory":
+                            ppar["blocked_device_memory"],
+                        "pv": ppar["pv"], **tol}),
+            kernel_entry(
+                "blo_newton_pinv (per-pair)",
+                "epa_ng_tpu/ops/pallas_blo.py:104",
+                pstats["pinv_launches"], ppar["per_pair"],
+                launches_note="the +I kernel's launches on the +I main "
+                "path; K2 and K4 are one CUDA kernel, which the engine "
+                "calls through the blocked shape",
+                parity={"per_pair": ppar["per_pair"], **tol}),
+            kernel_entry(
+                "blo_newton_counted", "epa_ng_tpu/ops/pallas_blo.py:86",
+                stats["counted_launches"] + pstats["counted_launches"],
+                par["counted"],
+                launches_note="counted launches over both main paths",
+                parity={"counted": par["counted"], **tol}),
+        ]
+        for sub in ("data", "data_pinv", "small", "small_ic", "profiled",
+                    "profiled_pinv"):
             for root, _, files in os.walk(os.path.join(OUT, sub)):
                 for f in files:
                     if f.endswith(".fasta"):
                         os.remove(os.path.join(root, f))
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

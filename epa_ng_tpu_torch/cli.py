@@ -460,7 +460,9 @@ def main(argv=None) -> int:
         # write_s split: device sync + result assembly (finalize) vs
         # jplace text formatting + file write (emit)
         finalize_s=stage_s["finalize"],
-        emit_s=stage_s["emit"])
+        emit_s=stage_s["emit"],
+        # the CUDA kernel's executed Newton work, from its counters
+        **engine.newton_work.totals())
     log.info("Time spent placing: %ds", int(time.time() - start_place))
     log.info("Elapsed Time: %ds", int(time.time() - start_all))
     return 0

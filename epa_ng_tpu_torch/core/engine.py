@@ -167,6 +167,9 @@ class PlacementEngine:
 
     def _finish_init(self, ref_logl: Optional[float] = None):
         self._escalations = 0  # chunks rescued by the wide-budget ladder
+        # the Newton work the CUDA kernel executed, from its own counters
+        # (zero where the torch twin ran instead)
+        self.newton_work = blo_kernel.NewtonWork(self.device)
         # sanity check: finite reference-tree log-likelihood
         # (reference: src/tree/Tree.cpp:49-53)
         self.ref_tree_logl = (float(self._reference_logl())
@@ -535,7 +538,8 @@ class PlacementEngine:
             site_width=W, packed=True, use_kernel=use_kernel,
             block_width=Wk, filter_cfg=fcfg,
             filter_threshold=opts.support_threshold,
-            heur_mode=heur_mode, has_pinv=self.model.pinv > 0)
+            heur_mode=heur_mode, has_pinv=self.model.pinv > 0,
+            work=self.newton_work)
         return {
             "ec": ec, "out": _HostCopy(out), "perm": perm, "Qr": Qr,
             "codes": codes, "ranges": ranges,
@@ -663,7 +667,7 @@ class PlacementEngine:
             use_kernel=use_kernel, block_width=Wk2,
             heur_mode=heur_mode,
             filter_cfg=fcfg, filter_threshold=opts.support_threshold,
-            has_pinv=self.model.pinv > 0)
+            has_pinv=self.model.pinv > 0, work=self.newton_work)
         return self._redo_wide_finish(out, redo, n_redo, k2, codes, ranges,
                                       tQ, invq, perm, headers,
                                       seq_id_offset)
@@ -801,7 +805,8 @@ class PlacementEngine:
                     self.consts, blo.tU, blo.tV, blo.ls, blo.lengths,
                     tQ, invq, as_d(pair_e[pad]), as_d(pair_q[pad]),
                     as_d(begins[pair_q[pad]]), as_d(sp),
-                    blo_kernel.kernel_width(sp), cap, has_pinv=has_pinv)
+                    blo_kernel.kernel_width(sp), cap, has_pinv=has_pinv,
+                    work=self.newton_work)
                 pending.append((sel, n, [_HostCopy(a) for a in res]))
             read_back(pending, done_out)
             return done_out
@@ -901,8 +906,9 @@ def state_from_numpy(consts, blo, table, dtype=None, device="cuda"):
 
 
 def _check_device_model(device: torch.device, model: Model):
-    """On the card this slice places single-matrix DNA models without +I;
-    everything else raises rather than running the plain paths there."""
+    """On the card the port places single-matrix DNA models, with or
+    without +I (``+I{p}``, ``+IU{p}``, the empirical ``+IC``); everything
+    else raises rather than running the plain paths there."""
     if device.type != "cuda":
         return
     what = None
@@ -910,8 +916,6 @@ def _check_device_model(device: torch.device, model: Model):
         what = f"{model.num_states}-state models"
     elif model.submodels is not None:
         what = "matrix-mixture models"
-    elif model.pinv > 0 or model.pinv_mode == ParamValue.EMPIRICAL:
-        what = "+I (invariant-site) models"
     if what is not None:
         raise NotImplementedError(
             f"{what} are not yet ported to the GPU in epa_ng_tpu_torch "
@@ -927,13 +931,12 @@ def _transform_codes(consts, char_clvs, codes):
 
 def _blo_blocked(consts, tU, tV, ls, lengths, tQ, invq, e_ids, q_ids,
                  begins, spans, width: int, max_smoothings: int,
-                 has_pinv: bool = False):
+                 has_pinv: bool = False, work=None):
     """Kernel dispatch for an explicit pair list: each pair reads its own
     window of the full stores (ops.blo_kernel.
-    blo_optimize_batch_kernel_blocked)."""
-    if has_pinv:
-        raise NotImplementedError(
-            "the +I Newton kernel (pallas_blo K2) is not yet ported")
+    blo_optimize_batch_kernel_blocked), +I models their invariant term
+    from ``invq`` and ``ls``. ``work`` (``NewtonWork``) accumulates the
+    kernel's executed work."""
     S = tU.shape[2]
     dtype = tU.dtype
     site = torch.arange(S, device=tU.device)
@@ -942,10 +945,14 @@ def _blo_blocked(consts, tU, tV, ls, lengths, tQ, invq, e_ids, q_ids,
                 & (site[None, :] < ends[:, None])).to(dtype)
     e = e_ids.long()
     ls_sum = torch.sum(fullmask * ls[e], dim=1)
-    logl, pendant, distal_rep, _, _, done = (
-        blo_kernel.blo_optimize_batch_kernel_blocked(
-            consts, tU, tV, tQ, e_ids, q_ids, begins, spans, lengths[e],
-            ls_sum, block_width=width, max_smoothings=max_smoothings))
+    pinv = dict(invq=invq, ls=ls) if has_pinv else {}
+    out = blo_kernel.blo_optimize_batch_kernel_blocked(
+        consts, tU, tV, tQ, e_ids, q_ids, begins, spans, lengths[e],
+        ls_sum, block_width=width, max_smoothings=max_smoothings,
+        counters=work is not None, **pinv)
+    logl, pendant, distal_rep, _, _, done = out[:6]
+    if work is not None:
+        work.add(torch.ones_like(done), out[6:])
     return logl, pendant, distal_rep, done
 
 

@@ -3,14 +3,18 @@
 // eigenbasis form, one warp per (query, edge) pair.
 //
 // Replaces (epa_ng_tpu/ops/pallas_blo.py):
-//   _blo_kernel_blocked  (K1, the fused step's and the exact path's kernel)
-//   _blo_kernel          (K3, the per-pair-window variant)
-// and their shared body _blo_compute. Both TPU kernels compute the same
+//   _blo_kernel_blocked       (K1, the fused step's and the exact path's)
+//   _blo_kernel               (K3, the per-pair-window variant)
+//   _blo_kernel_blocked_pinv  (K2, K1 with the +I invariant-site term)
+//   _blo_kernel_pinv          (K4, K3 with the +I invariant-site term)
+//   _blo_kernel_counted       (K5, K3 counting its Newton trips)
+// and their shared body _blo_compute. The TPU kernels compute the same
 // per-pair function and differ only in how a 128-pair block's site window
 // reaches VMEM; here every pair reads its OWN window [begin, begin+span)
 // of the full site-last stores tU/tV [E, RK, S] and tQ [Q, K, S] by edge
 // and query id, so the TPU path's row gather tU[e_ids] and its
-// [NP,RK,S] -> [RK,S,NP] relayout disappear.
+// [NP,RK,S] -> [RK,S,NP] relayout disappear. +I (HAS_PINV) is a template
+// flag; the K5 counters are a null-or-not output pointer.
 //
 // Per pair (cf. _blo_compute):
 //   T1 = contract(wA-back-transform(tU e^{x lp}), A-back-transform(tV e^{x ld}))
@@ -20,24 +24,31 @@
 //     T2 = contract(wA-bt(tU e^{x lprox}), A-bt(tQ e^{x lpend})) * tV
 //     distal Newton on T2
 //     T1 = T at the new lengths; rescore; roll back if worse
+// With +I every site likelihood is g = omp * f + pv (omp = 1 - pinv,
+// pv = exp(invq[q, s] - ls[e, s]) the linear invariant term in the CLVs'
+// scaled space), and the Newton derivatives carry the omp factor.
 //
 // What bounds it on this card: operations, not bytes. Each pair reads its
-// windows (2*RK + K floats per site, 144 B at RK = 16) and then runs
-// ~80 FMA-class operations per site per Newton iteration and ~440 per
-// sumtable build, for ~5-15 Newton iterations per solve and 2-4
-// smoothings. The working set that must stay on chip is T, RK floats per
-// site (64 KB for a 1024-site window at RK = 16), not the TPU's ~five
-// [RK, W, 128] tile sets (1 MB each at W = 128), which do not fit the
-// 227 KB of shared memory a block may use.
+// windows (2*RK + K floats per site, 144 B at RK = 16; +8 B for invq and
+// ls with +I) and then runs ~80 FMA-class operations per site per Newton
+// iteration and ~440 per sumtable build, for ~5-15 Newton iterations per
+// solve and 2-4 smoothings. The working set that must stay on chip is T,
+// RK floats per site (64 KB for a 1024-site window at RK = 16; one more
+// row, pv, with +I), not the TPU's ~five [RK, W, 128] tile sets (1 MB
+// each at W = 128), which do not fit the 227 KB of shared memory a block
+// may use.
 //
 // Design against that bound:
 //   * one warp per pair: lanes stride over the window's sites, d1/d2 and
 //     the score are reduced with an xor-butterfly of shuffles, which
 //     leaves the bit-identical sum in every lane, so the whole warp takes
 //     the same Newton/smoothing branches with no barrier at all;
-//   * T lives in shared memory, [RK][width] floats per warp, reused for
-//     T1 and T2 (T1 is dead once the pendant solve is done); each lane only
-//     touches its own sites, so T needs no synchronisation either;
+//   * T lives in shared memory, [RK (+1)][width] floats per warp, reused
+//     for T1 and T2 (T1 is dead once the pendant solve is done); each lane
+//     only touches its own sites, so T needs no synchronisation either;
+//     the +I row pv is filled once per pair and read by every score and
+//     Newton iteration (the TPU path materialises an [NP, S] pinv_lin
+//     tensor instead);
 //   * tU/tV/tQ are re-read from device memory (L2) at each sumtable build,
 //     coalesced along sites (the stores are site-last);
 //   * the exponential scale factors e^{x_j t} are per-pair scalars computed
@@ -46,10 +57,13 @@
 //     their derivative terms, as _blo_compute does statically;
 //   * every pair iterates on its own: a finished pair's warp takes the
 //     next pair, no lock step across pairs (the TPU kernel freezes done
-//     lanes instead).
-// Windows too wide for shared memory (RK * width * 4 bytes of T per warp
-// above ops/blo_kernel.py::max_shared_sites) keep T in a device-memory
-// scratch instead, one [RK][width] slice per resident warp; the grid is
+//     lanes instead). So the K5 counters are per pair: that pair's own
+//     executed Newton iterations (both solves, all smoothings) and
+//     smoothings, where the TPU kernel reports one count per 128-pair
+//     block, the lock-step trips that the block's slowest lanes set.
+// Windows too wide for shared memory ((RK (+1)) * width * 4 bytes of T per
+// warp above ops/blo_kernel.py::max_shared_sites) keep T in a
+// device-memory scratch instead, one slice per resident warp; the grid is
 // then capped to the scratch's slices and each warp loops over pairs. The
 // arithmetic is the same, so a window of any width runs the kernel.
 //
@@ -62,11 +76,19 @@
 // and it parts from the plain version, in f32 and in f64 alike, by up to
 // a few logl units on about one pair in two thousand, where f32 is
 // borderline (``python3 chip_smoke.py --fmad-ab``; PERF.md).
+//
+// The source is compiled twice, with BLO_HAS_PINV 0 and 1, into two
+// libraries that build in parallel; each holds the 16 instantiations
+// (rate count x sumtable home) of its flavour.
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+
+#ifndef BLO_HAS_PINV
+#define BLO_HAS_PINV 0
+#endif
 
 namespace {
 
@@ -97,18 +119,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int R>
+template <int R, bool HAS_PINV>
 struct PairCtx {
   static constexpr int RK = R * K;
   const float* __restrict__ tu;  // tU row block of this pair's edge [RK, S]
   const float* __restrict__ tv;
   const float* __restrict__ tq;  // tQ row block of this pair's query [K, S]
+  const float* __restrict__ iq;  // invq row of this pair's query [S] (+I)
+  const float* __restrict__ ls;  // ls row of this pair's edge [S] (+I)
   int S;
   int begin;
   int span;
   int width;                     // T row stride (>= span)
   int lane;
-  float* T;                      // [RK][width], this warp's slice
+  float omp;                     // 1 - pinv (+I)
+  float* T;                      // [RK (+1)][width], this warp's slice
   const float* xrk;              // [RK]      shared
   const float* wA;               // [RK][K]   shared
   const float* A;                // [K][K]    shared
@@ -140,6 +165,26 @@ struct PairCtx {
 #pragma unroll
     for (int i = 1; i < K; ++i) acc += piA[i * K + k] * (hA[i] * hB[i]);
     return acc;
+  }
+
+  // the +I row of T: pv = exp(invq - ls) over the pair's span, once per
+  // pair (one exponential of the difference, as the JAX package's
+  // parallel/mesh.py does; an invq of -inf gives 0). Never read beyond
+  // the span, like every other row.
+  __device__ void fill_pv() {
+    for (int w = lane; w < span; w += WARP) {
+      const int s = begin + w;
+      T[RK * width + w] = expf(iq[s] - ls[s]);
+    }
+  }
+
+  // the site likelihood from the eigen-sum f at window site w
+  __device__ __forceinline__ float site_g(float f, int w) const {
+    if constexpr (HAS_PINV) {
+      return omp * f + T[RK * width + w];
+    } else {
+      return f;
+    }
   }
 
   // pendant sumtable at edge lengths (lp, ld): T1 of _blo_compute.build_T
@@ -218,18 +263,20 @@ struct PairCtx {
         const float t = T[j * width + w];
         f += (j % K == K - 1) ? t : t * E[j];
       }
-      acc += logf(fmaxf(f, FLT_MIN));
+      acc += logf(fmaxf(site_g(f, w), FLT_MIN));
     }
     return warp_sum(acc);
   }
 
-  // safeguarded Newton on dlogl/dt over T (see _blo_compute.newton)
-  __device__ float newton(float xmin, float xmax, float xtol,
-                          float guess) const {
+  // safeguarded Newton on dlogl/dt over T (see _blo_compute.newton);
+  // adds the iterations it executes to ``iters``
+  __device__ float newton(float xmin, float xmax, float xtol, float guess,
+                          int& iters) const {
     float x = fminf(fmaxf(guess, xmin), xmax);
     float slid = 0.0f;
     bool done = false;
     for (int it = 0; it < MAX_ITERS && !done; ++it) {
+      ++iters;
       float E[RK];
       exps(x, E);
       float d1p = 0.0f, d2p = 0.0f;
@@ -248,8 +295,14 @@ struct PairCtx {
             f2 += tE * (xj * xj);
           }
         }
-        const float g = fmaxf(f0, FLT_MIN);
+        // +I: g = omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2, in
+        // _blo_compute's order of operations
+        const float g = fmaxf(site_g(f0, w), FLT_MIN);
         const float inv_g = 1.0f / g;
+        if constexpr (HAS_PINV) {
+          f1 = omp * f1;
+          f2 = omp * f2;
+        }
         const float r1 = f1 * inv_g;
         d1p += r1;
         d2p += f2 * inv_g - r1 * r1;
@@ -273,32 +326,39 @@ struct PairCtx {
   }
 };
 
-template <int R>
-__device__ void solve_pair(const PairCtx<R>& c_in, float orig,
-                           int max_smoothings, float* out) {
-  PairCtx<R> c = c_in;
+// out: logl, pendant, distal, proximal, done; counts: smoothings, Newton
+// iterations executed by this pair
+template <int R, bool HAS_PINV>
+__device__ void solve_pair(const PairCtx<R, HAS_PINV>& c_in, float orig,
+                           int max_smoothings, float* out, int* counts) {
+  PairCtx<R, HAS_PINV> c = c_in;
   const float half = orig * 0.5f;
   const float dist_min = fminf(BRLEN_MIN / 2.0f, half);
   const float dist_tol = dist_min / 10.0f;
   const float dist_max = orig - dist_tol;
 
+  if constexpr (HAS_PINV) c.fill_pv();
   float pendant = DEFAULT_PENDANT;
   float distal = half;
   float proximal = half;
   c.build_t1(half, half);
   float neg = -c.score(pendant);
   bool done = false;
+  int smoothings = 0;
+  int iters = 0;
   for (int it = 0; it < max_smoothings && !done; ++it) {
+    ++smoothings;
     // --- pendant Newton on T1 (lp, ld fixed)
     const float guess =
         (pendant < BRLEN_MIN || pendant > BRLEN_MAX) ? BRLEN_DEFAULT : pendant;
     const float new_pendant =
-        c.newton(BRLEN_MIN, BRLEN_MAX, BRLEN_MIN / 10.0f, guess);
+        c.newton(BRLEN_MIN, BRLEN_MAX, BRLEN_MIN / 10.0f, guess, iters);
     // --- distal Newton on the role-swapped T2
     c.build_t2(proximal, new_pendant);
     const float guess2 =
         (distal < dist_min || distal > dist_max) ? half : distal;
-    const float new_distal = c.newton(dist_min, dist_max, dist_tol, guess2);
+    const float new_distal =
+        c.newton(dist_min, dist_max, dist_tol, guess2, iters);
     const float new_proximal = orig - new_distal;
     // --- rescore; T at the accepted lengths is the next pendant sumtable
     c.build_t1(new_proximal, new_distal);
@@ -318,14 +378,19 @@ __device__ void solve_pair(const PairCtx<R>& c_in, float orig,
   out[2] = distal;
   out[3] = proximal;
   out[4] = done ? 1.0f : 0.0f;
+  counts[0] = smoothings;
+  counts[1] = iters;
 }
 
-// GLOBAL_T: T in t_scratch (one [RK][width] slice per warp of the grid)
-// rather than in shared memory
-template <int R, bool GLOBAL_T>
+// GLOBAL_T: T in t_scratch (one [RK (+1)][width] slice per warp of the
+// grid) rather than in shared memory
+template <int R, bool GLOBAL_T, bool HAS_PINV>
 __global__ void __launch_bounds__(128)
 blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
                   const float* __restrict__ tQ, int S,
+                  const float* __restrict__ invq,
+                  const float* __restrict__ ls,
+                  const float* __restrict__ omp,
                   const int* __restrict__ e_ids, const int* __restrict__ q_ids,
                   const int* __restrict__ begins,
                   const int* __restrict__ spans,
@@ -339,8 +404,11 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
                   float* __restrict__ out_pendant,
                   float* __restrict__ out_distal,
                   float* __restrict__ out_proximal,
-                  float* __restrict__ out_done) {
+                  float* __restrict__ out_done,
+                  int* __restrict__ out_smoothings,
+                  int* __restrict__ out_iters) {
   constexpr int RK = R * K;
+  constexpr int ROWS = RK + (HAS_PINV ? 1 : 0);
   static_assert(R <= MAX_R, "rate categories");
   extern __shared__ float smem[];
   float* s_x = smem;                 // [RK]
@@ -360,24 +428,31 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
   const int lane = threadIdx.x % WARP;
   const size_t slot = static_cast<size_t>(blockIdx.x) * warps + warp;
 
-  PairCtx<R> c;
+  PairCtx<R, HAS_PINV> c;
   c.S = S;
   c.width = width;
   c.lane = lane;
+  c.omp = HAS_PINV ? omp[0] : 1.0f;
+  c.iq = nullptr;
+  c.ls = nullptr;
   if constexpr (GLOBAL_T) {
-    c.T = t_scratch + slot * RK * width;
+    c.T = t_scratch + slot * ROWS * width;
   } else {
-    c.T = smem + TAB_FLOATS + static_cast<size_t>(warp) * RK * width;
+    c.T = smem + TAB_FLOATS + static_cast<size_t>(warp) * ROWS * width;
   }
   c.xrk = s_x;
   c.wA = s_wA;
   c.A = s_A;
   c.piA = s_piA;
+  // the counters are optional (null: off); the branch is uniform over the
+  // grid, so it costs no divergence
+  const bool count = out_iters != nullptr;
 
   // warp-uniform loop: every lane of a warp holds the same p
   for (int p = static_cast<int>(slot); p < P; p += gridDim.x * warps) {
     const float orig = orig_len[p];
     float out[5];
+    int counts[2] = {0, 0};
     if (skip[p] > 0.0f) {
       // dead lane: the frozen state _blo_compute reports for it
       out[0] = 0.0f;
@@ -391,9 +466,13 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
       c.tu = tU + e * RK * S;
       c.tv = tV + e * RK * S;
       c.tq = tQ + q * K * S;
+      if constexpr (HAS_PINV) {
+        c.iq = invq + q * S;
+        c.ls = ls + e * S;
+      }
       c.begin = max(begins[p], 0);
       c.span = min(min(spans[p], width), S - c.begin);
-      solve_pair<R>(c, orig, max_smoothings, out);
+      solve_pair<R, HAS_PINV>(c, orig, max_smoothings, out, counts);
     }
     if (lane == 0) {
       out_logl[p] = out[0];
@@ -401,57 +480,71 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
       out_distal[p] = out[2];
       out_proximal[p] = out[3];
       out_done[p] = out[4];
+      if (count) {
+        out_smoothings[p] = counts[0];
+        out_iters[p] = counts[1];
+      }
     }
   }
 }
 
-template <int R, bool GLOBAL_T>
-int launch_as(const float* tU, const float* tV, const float* tQ, int S,
-              const int* e_ids, const int* q_ids, const int* begins,
-              const int* spans, const float* orig_len, const float* skip,
-              const float* x_rk, const float* wA, const float* A,
-              const float* piA, int P, int width, int max_smoothings,
-              int pairs_per_block, int blocks, float* t_scratch, float* logl,
-              float* pendant, float* distal, float* proximal, float* done,
-              cudaStream_t stream) {
-  constexpr int RK = R * K;
+struct Args {
+  const float* tU;
+  const float* tV;
+  const float* tQ;
+  int S;
+  const float* invq;
+  const float* ls;
+  const float* omp;
+  const int* e_ids;
+  const int* q_ids;
+  const int* begins;
+  const int* spans;
+  const float* orig_len;
+  const float* skip;
+  const float* x_rk;
+  const float* wA;
+  const float* A;
+  const float* piA;
+  int P;
+  int width;
+  int max_smoothings;
+  int pairs_per_block;
+  int blocks;
+  float* t_scratch;
+  float* logl;
+  float* pendant;
+  float* distal;
+  float* proximal;
+  float* done;
+  int* smoothings;
+  int* iters;
+};
+
+template <int R, bool GLOBAL_T, bool HAS_PINV>
+int launch_as(const Args& a, cudaStream_t stream) {
+  constexpr int ROWS = R * K + (HAS_PINV ? 1 : 0);
   const size_t t_floats =
-      GLOBAL_T ? 0
-               : static_cast<size_t>(pairs_per_block) * RK * width;
+      GLOBAL_T ? 0 : static_cast<size_t>(a.pairs_per_block) * ROWS * a.width;
   const size_t smem = sizeof(float) * (TAB_FLOATS + t_floats);
   cudaError_t err = cudaFuncSetAttribute(
-      blo_newton_kernel<R, GLOBAL_T>,
+      blo_newton_kernel<R, GLOBAL_T, HAS_PINV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  blo_newton_kernel<R, GLOBAL_T>
-      <<<blocks, WARP * pairs_per_block, smem, stream>>>(
-          tU, tV, tQ, S, e_ids, q_ids, begins, spans, orig_len, skip, x_rk,
-          wA, A, piA, P, width, max_smoothings, t_scratch, logl, pendant,
-          distal, proximal, done);
+  blo_newton_kernel<R, GLOBAL_T, HAS_PINV>
+      <<<a.blocks, WARP * a.pairs_per_block, smem, stream>>>(
+          a.tU, a.tV, a.tQ, a.S, a.invq, a.ls, a.omp, a.e_ids, a.q_ids,
+          a.begins, a.spans, a.orig_len, a.skip, a.x_rk, a.wA, a.A, a.piA,
+          a.P, a.width, a.max_smoothings, a.t_scratch, a.logl, a.pendant,
+          a.distal, a.proximal, a.done, a.smoothings, a.iters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R>
-int launch(const float* tU, const float* tV, const float* tQ, int S,
-           const int* e_ids, const int* q_ids, const int* begins,
-           const int* spans, const float* orig_len, const float* skip,
-           const float* x_rk, const float* wA, const float* A,
-           const float* piA, int P, int width, int max_smoothings,
-           int pairs_per_block, int blocks, float* t_scratch, float* logl,
-           float* pendant, float* distal, float* proximal, float* done,
-           cudaStream_t stream) {
-  if (t_scratch != nullptr) {
-    return launch_as<R, true>(tU, tV, tQ, S, e_ids, q_ids, begins, spans,
-                              orig_len, skip, x_rk, wA, A, piA, P, width,
-                              max_smoothings, pairs_per_block, blocks,
-                              t_scratch, logl, pendant, distal, proximal,
-                              done, stream);
-  }
-  return launch_as<R, false>(tU, tV, tQ, S, e_ids, q_ids, begins, spans,
-                             orig_len, skip, x_rk, wA, A, piA, P, width,
-                             max_smoothings, pairs_per_block, blocks,
-                             nullptr, logl, pendant, distal, proximal, done,
-                             stream);
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
+  if (a.t_scratch != nullptr) return launch_as<R, true, HAS_PINV>(a, stream);
+  return launch_as<R, false, HAS_PINV>(a, stream);
 }
 
 }  // namespace
@@ -459,43 +552,50 @@ int launch(const float* tU, const float* tV, const float* tQ, int S,
 extern "C" {
 
 // Returns 0 or a cudaError_t code. num_rates selects the instantiation
-// (RK = 4 * num_rates); -1 means an unsupported rate count. t_scratch is
-// null for T in shared memory, else blocks * pairs_per_block slices of
-// [RK][width] floats in device memory.
+// (RK = 4 * num_rates); -1 means an unsupported rate count, -2 a missing
+// +I input. t_scratch is null for T in shared memory, else blocks *
+// pairs_per_block slices of [RK (+1)][width] floats in device memory.
+// invq [Q, S], ls [E, S] and omp [1] are read only by the +I library;
+// smoothings and iters [P] are both null (no counters) or both set.
 int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
-                      int S, int num_rates, const int* e_ids,
+                      int S, int num_rates, const float* invq,
+                      const float* ls, const float* omp, const int* e_ids,
                       const int* q_ids, const int* begins, const int* spans,
                       const float* orig_len, const float* skip,
                       const float* x_rk, const float* wA, const float* A,
                       const float* piA, int P, int width, int max_smoothings,
                       int pairs_per_block, int blocks, float* t_scratch,
                       float* logl, float* pendant, float* distal,
-                      float* proximal, float* done, void* stream) {
+                      float* proximal, float* done, int* smoothings,
+                      int* iters, void* stream) {
   if (P <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BLO_CASE(RR)                                                       \
-  case RR:                                                                 \
-    return launch<RR>(tU, tV, tQ, S, e_ids, q_ids, begins, spans,          \
-                      orig_len, skip, x_rk, wA, A, piA, P, width,          \
-                      max_smoothings, pairs_per_block, blocks, t_scratch,  \
-                      logl, pendant, distal, proximal, done, st);
-  switch (num_rates) {
-    BLO_CASE(1)
-    BLO_CASE(2)
-    BLO_CASE(3)
-    BLO_CASE(4)
-    BLO_CASE(5)
-    BLO_CASE(6)
-    BLO_CASE(7)
-    BLO_CASE(8)
-    default:
-      return -1;
+  if (BLO_HAS_PINV && (invq == nullptr || ls == nullptr || omp == nullptr)) {
+    return -2;
   }
-#undef BLO_CASE
+  if ((smoothings == nullptr) != (iters == nullptr)) return -2;
+  const Args a{tU,     tV,      tQ,     S,       invq,           ls,
+               omp,    e_ids,   q_ids,  begins,  spans,          orig_len,
+               skip,   x_rk,    wA,     A,       piA,            P,
+               width,  max_smoothings,  pairs_per_block,         blocks,
+               t_scratch,       logl,   pendant, distal,         proximal,
+               done,   smoothings,      iters};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (num_rates) {
+    case 1: return launch<1>(a, st);
+    case 2: return launch<2>(a, st);
+    case 3: return launch<3>(a, st);
+    case 4: return launch<4>(a, st);
+    case 5: return launch<5>(a, st);
+    case 6: return launch<6>(a, st);
+    case 7: return launch<7>(a, st);
+    case 8: return launch<8>(a, st);
+    default: return -1;
+  }
 }
 
 const char* blo_newton_error_string(int code) {
   if (code == -1) return "unsupported number of rate categories";
+  if (code == -2) return "missing +I input or counter output";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

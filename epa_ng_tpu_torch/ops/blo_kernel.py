@@ -1,38 +1,46 @@
 """The thorough-placement Newton kernel: CUDA launch, plain PyTorch version,
 and the two wrappers the engine calls.
 
-Counterpart of ``epa_ng_tpu/ops/pallas_blo.py``. The TPU kernels K1
-(``_blo_kernel_blocked``) and K3 (``_blo_kernel``) become ONE CUDA kernel,
+Counterpart of ``epa_ng_tpu/ops/pallas_blo.py``. All five TPU kernels —
+K1 (``_blo_kernel_blocked``), K3 (``_blo_kernel``), their +I variants K2
+(``_blo_kernel_blocked_pinv``) and K4 (``_blo_kernel_pinv``), and the
+iteration-counting K5 (``_blo_kernel_counted``) — become ONE CUDA kernel,
 ``csrc/blo_newton.cu``, that reads each (query, edge) pair's own site
-window out of the full site-last stores by edge and query id. Its
-interface is :data:`blo_newton`:
+window out of the full site-last stores by edge and query id. +I is a
+template flag (built as a second library), the counters an optional
+output. Its interface is :data:`blo_newton`:
 
     tU, tV [E, RK, S], tQ [Q, K, S]      full stores (f32, contiguous)
     e_ids, q_ids, begins, spans [P]      per-pair rows and site windows
     orig_len, skip [P]                   edge lengths, dead-lane flags
     _kernel_scalars tables               x_rk [RK], wA [RK,K], A, piA [K,K]
+    invq [Q, S], ls [E, S], omp          +I only: the invariant term
+                                         exp(invq[q] - ls[e]), 1 - pinv
     -> logl (scaled space), pendant, distal, proximal, done   each [P]
+       (+ smoothings, newton_iters [P] int32 with ``counters``)
 
 :func:`blo_newton_plain` is the plain batched-torch version of the same
 function: it repeats ``_blo_compute``'s arithmetic (eigen back-transform,
 ``piA`` contraction, Newton with slide/snap and flat-region stops,
-rollback) on gathered windows. CPU tensors go to it; CUDA tensors go to the
-kernel or raise — nothing falls back.
+rollback, the +I term) on gathered windows. CPU tensors go to it; CUDA
+tensors go to the kernel or raise — nothing falls back.
 
 Wrappers with the JAX package's call shapes:
 
 - :func:`blo_optimize_batch_kernel_blocked` — ``blo_optimize_batch_pallas_
   blocked``'s outputs and scalar arguments, with the gathered tUg/tVg/tQg
-  replaced by the full stores plus ``e_ids``/``q_ids`` and the per-block
-  ``mask``/``offs`` replaced by the per-pair ``begins``/``spans`` the kernel
-  reads (the fused step and the exact path);
+  (and the +I ``pinv_lin`` [NP, S]) replaced by the full stores plus
+  ``e_ids``/``q_ids`` and the per-block ``mask``/``offs`` replaced by the
+  per-pair ``begins``/``spans`` the kernel reads (the fused step and the
+  exact path; K1, K2);
 - :func:`blo_optimize_batch_kernel` — ``blo_optimize_batch_pallas``'s
   signature on pre-sliced per-pair windows (``placement_step`` without a
-  ``block_width``).
+  ``block_width``; K3, K4).
 
-The kernel takes a window of any width: its sumtable sits in shared memory
-up to :func:`max_shared_sites` and in device memory beyond, so the engine
-never needs the TPU path's windowed fallbacks.
+Both take ``counters`` (K5's executed smoothings and Newton iterations,
+per pair). The kernel takes a window of any width: its sumtable sits in
+shared memory up to :func:`max_shared_sites` and in device memory beyond,
+so the engine never needs the TPU path's windowed fallbacks.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -71,10 +80,11 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
 
 
-def max_shared_sites(rk: int) -> int:
+def max_shared_sites(rk: int, has_pinv: bool = False) -> int:
     """Widest window whose sumtable the kernel keeps in shared memory; wider
-    windows keep it in device memory."""
-    return min(MAX_SHARED_SITES, MAX_RK_SITES // rk // 32 * 32)
+    windows keep it in device memory. +I adds one row (pv) to the
+    sumtable: 1440 sites at RK = 16."""
+    return min(MAX_SHARED_SITES, MAX_RK_SITES // (rk + has_pinv) // 32 * 32)
 
 
 def kernel_width(spans) -> int:
@@ -86,8 +96,8 @@ def kernel_width(spans) -> int:
 
 def blo_unsupported(consts, sliding: bool = True):
     """Why the CUDA kernel cannot take this model, or None: it takes DNA
-    (K = 4) with one substitution matrix, 1..MAX_RATES rate categories, f32
-    and sliding BLO, at any window width."""
+    (K = 4) with one substitution matrix, 1..MAX_RATES rate categories,
+    with or without +I, f32 and sliding BLO, at any window width."""
     k = int(consts.A.shape[-1])
     r = int(consts.rates.shape[0])
     if not sliding:
@@ -125,13 +135,21 @@ def _kernel_scalars(consts, dtype):
     return tuple(t.to(dtype).contiguous() for t in (x_rk, wA, A, piA))
 
 
+def _omp(consts, dtype):
+    """1 - pinv as a 1-element tensor on the stores' device (no host sync)."""
+    return (1.0 - consts.pinv).to(dtype).reshape(1)
+
+
 # --------------------------------------------------------------------------
 # plain version
 
 
-def _gather_windows(tU, tV, tQ, e_ids, q_ids, begins, spans, width, skip):
+def _gather_windows(tU, tV, tQ, e_ids, q_ids, begins, spans, width, skip,
+                    invq=None, ls=None):
     """Per-pair windows [P, RK, W] / [P, K, W] starting at each pair's
-    begin, zeroed beyond its span (and for dead lanes); plus the mask."""
+    begin, zeroed beyond its span (and for dead lanes); plus the mask and,
+    with ``invq``/``ls``, the +I term pv = exp(invq[q] - ls[e]) [P, W]
+    (zero off the span)."""
     S = tU.shape[2]
     dev = tU.device
     w = torch.arange(width, device=dev)
@@ -147,19 +165,25 @@ def _gather_windows(tU, tV, tQ, e_ids, q_ids, begins, spans, width, skip):
     tu = tU[e, rk, idx[:, None, :]] * m[:, None, :]
     tv = tV[e, rk, idx[:, None, :]] * m[:, None, :]
     tq = tQ[q, kq, idx[:, None, :]] * m[:, None, :]
-    return tu, tv, tq, m
+    pv = None
+    if invq is not None:
+        diff = invq[q[:, :, 0], idx] - ls[e[:, :, 0], idx]
+        pv = torch.where(valid, torch.exp(diff), torch.zeros_like(diff))
+    return tu, tv, tq, m, pv
 
 
 def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                      orig_len, skip, width: int,
                      max_smoothings: int = SMOOTHINGS,
-                     counters: bool = False):
+                     counters: bool = False, invq=None, ls=None, omp=None):
     """Plain batched-torch version of the kernel (``_blo_compute``'s
     arithmetic, pairs in lock step with per-pair freezing; a pair's result
     never depends on another's). Same inputs and outputs as
-    :data:`blo_newton`. With ``counters``, also returns per-pair executed
-    smoothings and inner Newton iterations (the work the kernel does on
-    these inputs, for its operation count)."""
+    :data:`blo_newton`: with ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
+    (1 - pinv) the +I term joins every site likelihood,
+    g = omp * f + exp(invq[q] - ls[e]), in the kernel's order of
+    operations. With ``counters``, also returns per-pair executed
+    smoothings and inner Newton iterations (the kernel's K5 outputs)."""
     x_rk, wA, A, piA = tables
     dtype = tU.dtype
     tiny = torch.finfo(dtype).tiny
@@ -167,8 +191,10 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     RK = x_rk.shape[0]
     R = RK // K
     zero_lane = [j % K == K - 1 for j in range(RK)]
-    tu, tv, tq, mask = _gather_windows(tU, tV, tQ, e_ids, q_ids, begins,
-                                       spans, width, skip)
+    tu, tv, tq, mask, pv = _gather_windows(tU, tV, tQ, e_ids, q_ids, begins,
+                                           spans, width, skip, invq, ls)
+    if pv is not None:
+        omp = torch.as_tensor(omp, dtype=dtype, device=tU.device).reshape(())
     P, _, W = tu.shape
     orig = orig_len.to(dtype)
     half = orig * 0.5
@@ -208,15 +234,18 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         return contract_T(back_transform(tu_, exps(lp), wA_r),
                           back_transform(tv_, exps(ld), A_r), tq_)
 
-    def score_from(T, lq, m):
+    def site_g(f, pv_):
+        return f if pv_ is None else omp * f + pv_
+
+    def score_from(T, lq, m, pv_):
         E = exps(lq)
         f = T[:, 0] * E[:, 0, None]
         for j in range(1, RK):
             f = f + (T[:, j] if zero_lane[j] else T[:, j] * E[:, j, None])
-        g = torch.clamp(f, min=tiny)
+        g = torch.clamp(site_g(f, pv_), min=tiny)
         return torch.sum(m * torch.log(g), dim=-1)
 
-    def newton(T, m, xmin, xmax, xtol, guess):
+    def newton(T, m, pv_, xmin, xmax, xtol, guess):
         x = torch.minimum(torch.maximum(guess, xmin), xmax)
         n = x.shape[0]
         done = torch.zeros(n, dtype=torch.bool, device=x.device)
@@ -237,8 +266,12 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                 f1 = tE * xj if f1 is None else f1 + tE * xj
                 f2 = (tE * (xj * xj) if f2 is None
                       else f2 + tE * (xj * xj))
-            g = torch.clamp(f0, min=tiny)
+            # +I: g = omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2
+            g = torch.clamp(site_g(f0, pv_), min=tiny)
             inv_g = 1.0 / g
+            if pv_ is not None:
+                f1 = omp * f1
+                f2 = omp * f2
             r1 = f1 * inv_g
             d1 = torch.sum(m * r1, dim=-1)
             d2 = torch.sum(m * (f2 * inv_g - r1 * r1), dim=-1)
@@ -263,7 +296,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     pendant = torch.full_like(orig, DEFAULT_PENDANT)
     distal, proximal = half.clone(), half.clone()
     T1 = build_T(tu, tv, tq, half, half)
-    neg = -score_from(T1, pendant, mask)
+    neg = -score_from(T1, pendant, mask, pv)
     done = skip > 0
     for _ in range(max_smoothings):
         act = torch.nonzero(~done).flatten()
@@ -271,6 +304,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
             break
         sub = lambda x: x.index_select(0, act)
         tu_a, tv_a, tq_a, m_a = sub(tu), sub(tv), sub(tq), sub(mask)
+        pv_a = None if pv is None else sub(pv)
         o_a, h_a = sub(orig), sub(half)
         dmin, dtol, dmax = sub(dist_min), sub(dist_tol), sub(dist_max)
         p_a, d_a, pr_a, neg_a = sub(pendant), sub(distal), sub(proximal), \
@@ -281,17 +315,17 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         # --- pendant Newton on T1 (lp, ld fixed)
         guess = torch.where((p_a < BRLEN_MIN) | (p_a > BRLEN_MAX),
                             full(BRLEN_DEFAULT), p_a)
-        new_p, it1 = newton(sub(T1), m_a, full(BRLEN_MIN), full(BRLEN_MAX),
-                            full(BRLEN_MIN / 10.0), guess)
+        new_p, it1 = newton(sub(T1), m_a, pv_a, full(BRLEN_MIN),
+                            full(BRLEN_MAX), full(BRLEN_MIN / 10.0), guess)
         # --- distal Newton on the role-swapped T2
         T2 = contract_T(back_transform(tu_a, exps(pr_a), wA_r),
                         back_transform(tq_a.repeat(1, R, 1), exps(new_p),
                                        A_r)) * tv_a
         guess2 = torch.where((d_a < dmin) | (d_a > dmax), h_a, d_a)
-        new_d, it2 = newton(T2, m_a, dmin, dmax, dtol, guess2)
+        new_d, it2 = newton(T2, m_a, pv_a, dmin, dmax, dtol, guess2)
         new_pr = o_a - new_d
         T_new = build_T(tu_a, tv_a, tq_a, new_pr, new_d)
-        new_neg = -score_from(T_new, new_p, m_a)
+        new_neg = -score_from(T_new, new_p, m_a, pv_a)
 
         worse = (new_neg - neg_a) > torch.abs(new_neg) * 1e-14
         converged = torch.abs(new_neg - neg_a) < OPT_BRANCH_EPSILON
@@ -310,7 +344,8 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     return out
 
 
-def blo_op_count(spans, smoothings, newton_iters, num_rates: int) -> float:
+def blo_op_count(spans, smoothings, newton_iters, num_rates: int,
+                 has_pinv: bool = False) -> float:
     """Floating-point operations the kernel needs for these pairs, counted
     from ``csrc/blo_newton.cu`` (an FMA counts 2; exp, log, max and a
     division count 1 each):
@@ -321,23 +356,39 @@ def blo_op_count(spans, smoothings, newton_iters, num_rates: int) -> float:
     - Newton iteration, per site: per non-zero lane 1 mul + 1 add + 2 FMA
       (6), per zero lane 1 add, then max, div, mul, add, 2 mul, sub (8);
     - score, per site: per non-zero lane an FMA (2), per zero lane 1 add,
-      then max, log, add (3).
+      then max, log, add (3);
+    - +I: per site the pv row once per pair (sub, exp: 2), per Newton
+      iteration omp * f0 + pv, omp * f1, omp * f2 (4), per score
+      omp * f + pv (2).
 
     One build and one score start each pair; each smoothing adds two builds
     (T2, then T at the new lengths) and one score. ``smoothings`` and
-    ``newton_iters`` are per-pair executed counts
-    (:func:`blo_newton_plain` with ``counters``)."""
+    ``newton_iters`` are per-pair executed counts (the kernel's counters,
+    or :func:`blo_newton_plain`'s)."""
     R = num_rates
     RK = 4 * R
     build = 98 * R
-    newton_site = 6 * (RK - R) + R + 8
-    score_site = 2 * (RK - R) + R + 3
+    newton_site = 6 * (RK - R) + R + 8 + 4 * has_pinv
+    score_site = 2 * (RK - R) + R + 3 + 2 * has_pinv
     spans = np.asarray(spans, np.float64)
     sm = np.asarray(smoothings, np.float64)
     it = np.asarray(newton_iters, np.float64)
     per_pair = spans * ((1 + 2 * sm) * build + (1 + sm) * score_site
-                        + it * newton_site)
+                        + it * newton_site + 2 * has_pinv)
     return float(per_pair.sum())
+
+
+def blo_byte_count(spans, num_rates: int, has_pinv: bool = False,
+                   counters: bool = False) -> float:
+    """Bytes the kernel must move for these pairs: each pair's windows of
+    tU, tV (RK floats per site each) and tQ (K), plus invq and ls with +I
+    (8 B per site), read once; per pair its ids, window and scalars
+    (24 B) and its five outputs (20 B), plus 8 B of counters."""
+    RK = 4 * num_rates
+    spans = np.asarray(spans, np.float64)
+    per_site = (2 * RK + 4) * 4 + 8 * has_pinv
+    per_pair = 24 + 20 + 8 * counters
+    return float(spans.sum() * per_site + len(spans) * per_pair)
 
 
 # --------------------------------------------------------------------------
@@ -345,68 +396,102 @@ def blo_op_count(spans, smoothings, newton_iters, num_rates: int) -> float:
 
 
 class _BloNewton:
-    """The CUDA kernel behind a callable. ``launches`` counts kernel
-    launches (never plain-version calls). The shared library is built with
-    nvcc at first use into ``epa_ng_tpu_torch/build/``. ``fmad`` turns on
-    nvcc's mul+add contraction (FMA); it is off, so the kernel rounds as
-    its plain version does (csrc/blo_newton.cu), and only the FMA timing
-    of ``chip_smoke.py --fmad-ab`` turns it on."""
+    """The CUDA kernel behind a callable. Launch counts (never plain-version
+    calls): ``launches`` all launches, ``pinv_launches`` those with the +I
+    term (K2/K4), ``counted_launches`` those with the K5 counters on. The
+    two shared libraries (without and with +I) are built with nvcc at
+    first use into ``epa_ng_tpu_torch/build/``; :meth:`build_all` builds
+    both at once. ``fmad`` turns on nvcc's mul+add contraction (FMA); it is
+    off, so the kernel rounds as its plain version does
+    (csrc/blo_newton.cu), and only the FMA timing of ``chip_smoke.py
+    --fmad-ab`` turns it on."""
 
     def __init__(self, fmad: bool = False):
         self.launches = 0
-        self.build_log = ""
+        self.pinv_launches = 0
+        self.counted_launches = 0
+        self.build_logs = {False: "", True: ""}
         self.fmad = fmad
-        self._lib = None
-        self._lock = threading.Lock()
+        self._libs = {}
+        self._locks = {False: threading.Lock(), True: threading.Lock()}
+        self._count_lock = threading.Lock()
 
-    def build(self):
-        """Compile csrc/blo_newton.cu (if stale) and load it; idempotent."""
-        with self._lock:
-            if self._lib is not None:
-                return self._lib
+    def reset_counts(self):
+        with self._count_lock:
+            self.launches = self.pinv_launches = self.counted_launches = 0
+
+    def counts(self) -> dict:
+        with self._count_lock:
+            return dict(launches=self.launches,
+                        pinv_launches=self.pinv_launches,
+                        counted_launches=self.counted_launches)
+
+    def build(self, has_pinv: bool = False):
+        """Compile csrc/blo_newton.cu for one flavour (if stale) and load
+        it; idempotent. Raises RuntimeError with nvcc's output on failure."""
+        with self._locks[has_pinv]:
+            lib = self._libs.get(has_pinv)
+            if lib is not None:
+                return lib
             os.makedirs(_BUILD_DIR, exist_ok=True)
             fmad = "true" if self.fmad else "false"
-            so = os.path.join(_BUILD_DIR, f"libblo_newton_fmad_{fmad}.so")
+            so = os.path.join(
+                _BUILD_DIR,
+                f"libblo_newton_pinv{int(has_pinv)}_fmad_{fmad}.so")
             if (not os.path.exists(so)
                     or os.path.getmtime(so) < os.path.getmtime(_SRC)):
                 nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
                 tmp = f"{so}.{os.getpid()}.tmp"
                 cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                        "-std=c++17", "-O3", f"-fmad={fmad}", "-shared",
+                       f"-DBLO_HAS_PINV={int(has_pinv)}",
                        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
                        _SRC]
                 res = subprocess.run(cmd, capture_output=True, text=True)
-                self.build_log = res.stdout + res.stderr
+                self.build_logs[has_pinv] = res.stdout + res.stderr
                 if res.returncode != 0:
                     raise RuntimeError(
-                        "nvcc failed to build csrc/blo_newton.cu:\n"
-                        + self.build_log)
+                        "nvcc failed to build csrc/blo_newton.cu "
+                        f"(BLO_HAS_PINV={int(has_pinv)}):\n"
+                        + self.build_logs[has_pinv])
                 os.replace(tmp, so)
             lib = ctypes.CDLL(so)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.blo_newton_launch.restype = i32
             lib.blo_newton_launch.argtypes = (
-                [ptr, ptr, ptr, i32, i32] + [ptr] * 6 + [ptr] * 4
-                + [i32, i32, i32, i32, i32, ptr] + [ptr] * 5 + [ptr])
+                [ptr, ptr, ptr, i32, i32] + [ptr] * 3 + [ptr] * 6
+                + [ptr] * 4 + [i32] * 5 + [ptr] + [ptr] * 7 + [ptr])
             lib.blo_newton_error_string.restype = ctypes.c_char_p
             lib.blo_newton_error_string.argtypes = [i32]
-            self._lib = lib
+            self._libs[has_pinv] = lib
             return lib
+
+    def build_all(self):
+        """Build both flavours with two nvcc processes side by side."""
+        with ThreadPoolExecutor(2) as ex:
+            for fut in [ex.submit(self.build, f) for f in (False, True)]:
+                fut.result()
 
     def __call__(self, tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                  orig_len, skip, width: int,
-                 max_smoothings: int = SMOOTHINGS):
+                 max_smoothings: int = SMOOTHINGS,
+                 counters: bool = False, invq=None, ls=None, omp=None):
         """CPU tensors: the plain version. CUDA tensors: the kernel (or a
-        ValueError/RuntimeError; nothing falls back)."""
+        ValueError/RuntimeError; nothing falls back). ``invq`` [Q, S],
+        ``ls`` [E, S] and ``omp`` (1 - pinv, a float or a 1-element
+        tensor) select the +I kernel; ``counters`` appends the per-pair
+        executed smoothings and Newton iterations (int32)."""
         if tU.device.type != "cuda":
             return blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins,
                                     spans, orig_len, skip, width,
-                                    max_smoothings)
+                                    max_smoothings, counters=counters,
+                                    invq=invq, ls=ls, omp=omp)
         x_rk, wA, A, piA = tables
         dev = tU.device
         RK, S = tU.shape[1], tU.shape[2]
         K = tQ.shape[1]
         P = e_ids.shape[0]
+        has_pinv = invq is not None
         if tU.dtype != torch.float32 or K != K_STATES or RK % K:
             raise ValueError("blo_newton takes f32 DNA (K = 4) stores")
         if tV.shape != tU.shape or tQ.shape[2] != S or tQ.dim() != 3:
@@ -414,19 +499,34 @@ class _BloNewton:
         if RK // K > MAX_RATES or width < 1:
             raise ValueError(f"blo_newton: unsupported RK={RK} or "
                              f"width={width}")
-        lib = self.build()
+        if has_pinv and (ls is None or omp is None
+                         or invq.shape != (tQ.shape[0], S)
+                         or ls.shape != (tU.shape[0], S)
+                         or invq.dtype != torch.float32
+                         or ls.dtype != torch.float32):
+            raise ValueError("blo_newton: +I takes f32 invq [Q,S], ls [E,S] "
+                             "and omp")
+        lib = self.build(has_pinv)
         f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
         tU_c, tV_c, tQ_c = tU.contiguous(), tV.contiguous(), tQ.contiguous()
+        pinv_args = []
+        if has_pinv:
+            omp_t = torch.as_tensor(omp, dtype=torch.float32,
+                                    device=dev).reshape(1)
+            pinv_args = [invq.contiguous(), ls.contiguous(), omp_t]
         args_i = [i32(t) for t in (e_ids, q_ids, begins, spans)]
         args_f = [f32(t) for t in (orig_len, skip, x_rk, wA, A, piA)]
-        for t in [tU_c, tV_c, tQ_c] + args_i + args_f:
+        for t in [tU_c, tV_c, tQ_c] + pinv_args + args_i + args_f:
             if t.device != dev:
                 raise ValueError("blo_newton: all tensors on one device")
         outs = [torch.empty(P, dtype=torch.float32, device=dev)
                 for _ in range(5)]
-        per_pair = RK * width * 4
-        if width <= max_shared_sites(RK):
+        counts = ([torch.empty(P, dtype=torch.int32, device=dev)
+                   for _ in range(2)] if counters else [])
+        rows = RK + has_pinv
+        per_pair = rows * width * 4
+        if width <= max_shared_sites(RK, has_pinv):
             # T in shared memory; one warp per pair
             ppb = max(1, min(4, (SMEM_PER_BLOCK - _TAB_BYTES) // per_pair))
             blocks = -(-P // ppb)
@@ -437,26 +537,56 @@ class _BloNewton:
             ppb = 4
             blocks = max(1, min(-(-P // ppb),
                                 T_SCRATCH_BYTES // (ppb * per_pair)))
-            scratch = torch.empty(blocks * ppb * RK * width,
+            scratch = torch.empty(blocks * ppb * rows * width,
                                   dtype=torch.float32, device=dev)
+        ptrs = lambda ts: [t.data_ptr() for t in ts]
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib.blo_newton_launch(
                 tU_c.data_ptr(), tV_c.data_ptr(), tQ_c.data_ptr(), S,
-                RK // K, *[t.data_ptr() for t in args_i],
-                *[t.data_ptr() for t in args_f],
-                P, width, max_smoothings, ppb, blocks,
+                RK // K, *(ptrs(pinv_args) or [None] * 3), *ptrs(args_i),
+                *ptrs(args_f), P, width, max_smoothings, ppb, blocks,
                 None if scratch is None else scratch.data_ptr(),
-                *[t.data_ptr() for t in outs], stream)
+                *ptrs(outs), *(ptrs(counts) or [None] * 2), stream)
         if rc != 0:
             msg = lib.blo_newton_error_string(rc).decode()
             raise RuntimeError(f"blo_newton launch failed: {msg} ({rc})")
-        with self._lock:
+        with self._count_lock:
             self.launches += 1
-        return tuple(outs)
+            self.pinv_launches += has_pinv
+            self.counted_launches += counters
+        return tuple(outs + counts)
 
 
 blo_newton = _BloNewton()
+
+
+class NewtonWork:
+    """Running totals of the Newton work the kernel executed for one
+    engine: pairs, smoothings and Newton iterations (both solves, every
+    smoothing), summed on the device from the kernel's K5 counters, so
+    adding costs no host sync. The engine's dispatch and finalize threads
+    both launch the kernel, so updates take a lock."""
+
+    def __init__(self, device):
+        self._totals = torch.zeros(3, dtype=torch.int64, device=device)
+        self._lock = threading.Lock()
+
+    def add(self, live, counts):
+        """Add one launch's per-pair counters (smoothings, iterations);
+        ``live`` marks the pairs it computed (dead lanes count 0 work)."""
+        smooth, iters = counts
+        step = torch.stack([live.sum(), smooth.sum(), iters.sum()])
+        with self._lock:
+            self._totals += step.to(torch.int64)
+
+    def totals(self) -> dict:
+        """The totals so far (one host sync)."""
+        with self._lock:
+            snap = self._totals.clone()
+        pairs, smooth, iters = (int(x) for x in snap.cpu())
+        return dict(newton_pairs=pairs, newton_smoothings=smooth,
+                    newton_iters=iters)
 
 
 # --------------------------------------------------------------------------
@@ -467,8 +597,11 @@ def blo_optimize_batch_kernel_blocked(consts, tU, tV, tQ, e_ids, q_ids,
                                       begins, spans, orig_len, ls_sum,
                                       block_width: int,
                                       max_smoothings: int = SMOOTHINGS,
-                                      skip=None, block_active=None):
-    """Counterpart of ``blo_optimize_batch_pallas_blocked``.
+                                      skip=None, block_active=None,
+                                      invq=None, ls=None,
+                                      counters: bool = False):
+    """Counterpart of ``blo_optimize_batch_pallas_blocked`` (K1; with +I,
+    K2).
 
     tU, tV: [E, RK, S] and tQ [Q, K, S] full stores; e_ids, q_ids [NP]
     rows of each pair; begins, spans [NP] each pair's site window (absolute
@@ -479,7 +612,14 @@ def blo_optimize_batch_kernel_blocked(consts, tU, tV, tQ, e_ids, q_ids,
     outputs the caller discards; ``block_active`` [NP/PB] zeroes whole
     128-pair groups as the TPU kernel's inactive blocks do.
 
-    Returns (logl, pendant, distal_reported, distal, proximal, done)."""
+    +I models pass ``invq`` [Q, S] (the query p-inv log term) and ``ls``
+    [E, S] (the store's log-scale): the kernel forms each pair's linear
+    invariant term exp(invq[q] - ls[e]) itself, where the TPU path takes a
+    materialised ``pinv_lin`` [NP, S]. ``counters`` appends the per-pair
+    executed smoothings and Newton iterations (0 for dead lanes; K5).
+
+    Returns (logl, pendant, distal_reported, distal, proximal, done)
+    (+ (smoothings, newton_iters) with ``counters``)."""
     NP = e_ids.shape[0]
     if NP % PB:
         raise ValueError(f"pair count {NP} is not a multiple of {PB}")
@@ -492,9 +632,12 @@ def blo_optimize_batch_kernel_blocked(consts, tU, tV, tQ, e_ids, q_ids,
         active = block_active.repeat_interleave(PB) > 0
         skip = torch.where(active, skip, torch.ones_like(skip))
     tables = _kernel_scalars(consts, dtype)
-    logl, pendant, distal, proximal, done = blo_newton(
+    omp = None if invq is None else _omp(consts, dtype)
+    out = blo_newton(
         tables, tU, tV, tQ, e_ids, q_ids, begins, spans, orig_len, skip,
-        block_width, max_smoothings)
+        block_width, max_smoothings, counters=counters, invq=invq, ls=ls,
+        omp=omp)
+    logl, pendant, distal, proximal, done = out[:5]
     if active is not None:
         zero = lambda x: torch.where(active, x, torch.zeros_like(x))
         logl, pendant, distal, proximal, done = map(
@@ -502,23 +645,26 @@ def blo_optimize_batch_kernel_blocked(consts, tU, tV, tQ, e_ids, q_ids,
     logl = logl + ls_sum
     done_b = done > 0
     distal_rep = (orig_len / (distal + proximal)) * distal
-    return logl, pendant, distal_rep, distal, proximal, done_b
+    return (logl, pendant, distal_rep, distal, proximal, done_b) + out[5:]
 
 
 def blo_optimize_batch_kernel(consts, tU, tV, tQ, ls, site_mask, orig_len,
                               inv_logfreq=None,
                               max_smoothings: int = SMOOTHINGS,
-                              has_pinv: bool = False):
-    """Counterpart of ``blo_optimize_batch_pallas`` (sliding mode): tU, tV
-    [B, RK, W] pre-sliced windows; tQ [B, K, W]; ls, site_mask [B, W];
-    orig_len [B]. Every caller's site mask is one contiguous run per pair,
-    which becomes that pair's (begin, span) window. ``inv_logfreq`` is
-    accepted for signature parity; +I (``has_pinv``) is not yet ported.
+                              has_pinv: bool = False,
+                              counters: bool = False):
+    """Counterpart of ``blo_optimize_batch_pallas`` (sliding mode; K3, with
+    +I K4): tU, tV [B, RK, W] pre-sliced windows; tQ [B, K, W]; ls,
+    site_mask [B, W]; orig_len [B]. Every caller's site mask is one
+    contiguous run per pair, which becomes that pair's (begin, span)
+    window. With ``has_pinv`` (+I models) ``inv_logfreq`` [B, W] and ``ls``
+    feed the kernel's invariant term exp(inv_logfreq - ls), row b for pair
+    b; otherwise ``inv_logfreq`` is accepted for signature parity and
+    ignored. ``counters`` appends the per-pair executed smoothings and
+    Newton iterations (K5; the TPU kernel counts per 128-pair block).
 
-    Returns (logl, pendant, distal_reported, distal, proximal, done)."""
-    if has_pinv:
-        raise NotImplementedError(
-            "the +I Newton kernel (pallas_blo K4) is not yet ported")
+    Returns (logl, pendant, distal_reported, distal, proximal, done)
+    (+ (smoothings, newton_iters) with ``counters``)."""
     B, RK, W = tU.shape
     dev = tU.device
     on = site_mask > 0
@@ -527,9 +673,14 @@ def blo_optimize_batch_kernel(consts, tU, tV, tQ, ls, site_mask, orig_len,
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     skip = torch.zeros(B, dtype=tU.dtype, device=dev)
     tables = _kernel_scalars(consts, tU.dtype)
-    logl, pendant, distal, proximal, done = blo_newton(
+    pinv = {}
+    if has_pinv:
+        pinv = dict(invq=inv_logfreq.to(tU.dtype), ls=ls,
+                    omp=_omp(consts, tU.dtype))
+    out = blo_newton(
         tables, tU, tV, tQ, ids, ids, begins, spans, orig_len, skip, W,
-        max_smoothings)
+        max_smoothings, counters=counters, **pinv)
+    logl, pendant, distal, proximal, done = out[:5]
     logl = logl + torch.sum(site_mask * ls, dim=1)
     distal_rep = (orig_len / (distal + proximal)) * distal
-    return logl, pendant, distal_rep, distal, proximal, done > 0
+    return (logl, pendant, distal_rep, distal, proximal, done > 0) + out[5:]

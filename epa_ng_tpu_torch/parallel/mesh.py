@@ -3,10 +3,11 @@
 on-device output filter, one call per query chunk.
 
 On the card the Newton stage runs the CUDA kernel (``use_kernel``, DNA f32
-sliding mode, through :func:`_newton_blocked_kernel`); f64, ``--pallas
-off`` and everything else take the torch Newton twin (ops.newton). The
-sharded multi-device step (``ShardedPlacement``, ``_spmd_step_body``,
-``make_mesh``) is not ported yet; it extends this module later.
+sliding mode with or without +I, through :func:`_newton_blocked_kernel`);
+f64, ``--pallas off`` and everything else take the torch Newton twin
+(ops.newton). The sharded multi-device step (``ShardedPlacement``,
+``_spmd_step_body``, ``make_mesh``) is not ported yet; it extends this
+module later.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
                    filter_cfg: tuple | None = None,
                    filter_threshold=0.0,
                    heur_mode: str = "dynamic",
-                   has_pinv: bool = False):
+                   has_pinv: bool = False,
+                   work=None):
     """One fused placement step over a query chunk.
 
     table: [E,C,S] preplacement lookup; tU, tV: [E,RK,S] eigen-transformed
@@ -117,6 +119,10 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
     :func:`_newton_blocked_kernel`). Restarting is trajectory-identical to
     one long run: the smoothing recursion is deterministic from the fixed
     init.
+
+    ``has_pinv``: +I models; the kernel reads ``invq`` and ``ls``.
+    ``work``: an ``ops.blo_kernel.NewtonWork`` to which the blocked kernel
+    branch adds the work it executed, from the kernel's own counters.
     """
     dtype = tU.dtype
     scores = _preplace_scores(table, codes, begins, spans)
@@ -135,7 +141,7 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
             consts, tU, tV, ls, lengths, tQ, flat_e, q_ids,
             valid.reshape(-1), begins, spans, block_width,
             halve_budget=(heur_mode == "dynamic"), phase1=phase1,
-            invq=invq, has_pinv=has_pinv)
+            invq=invq, has_pinv=has_pinv, work=work)
         sh = (Q, topk)
         return _step_epilogue(top_edges, logl.reshape(sh),
                               pendant.reshape(sh), distal.reshape(sh), valid,
@@ -200,7 +206,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
 def _newton_blocked_kernel(consts, tU, tV, ls, lengths, tQ, flat_e, q_ids0,
                            live0, begins, spans, block_width: int,
                            halve_budget: bool, phase1: int,
-                           invq=None, has_pinv: bool = False):
+                           invq=None, has_pinv: bool = False,
+                           work=None):
     """Kernel Newton stage over a flat [B] (query, edge) pair list with
     in-dispatch candidate compaction (the JAX package's
     ``_newton_blocked_pallas``): live pairs sort to the front in begin
@@ -226,10 +233,12 @@ def _newton_blocked_kernel(consts, tU, tV, ls, lengths, tQ, flat_e, q_ids0,
     smoothing cap, then the unconverged pairs are compacted into an NP/4
     budget and rerun with the full cap (trajectory-identical to one long
     run).
+
+    ``has_pinv``: the kernel adds each pair's invariant term
+    exp(invq[q] - ls[e]) (both phases). ``work`` (``NewtonWork``)
+    accumulates the pairs, smoothings and Newton iterations the kernel
+    executed, from its counters (K5), on the device.
     """
-    if has_pinv:
-        raise NotImplementedError(
-            "the +I Newton kernel (pallas_blo K2) is not yet ported")
     dtype = tU.dtype
     dev = tU.device
     S = tU.shape[2]
@@ -268,11 +277,16 @@ def _newton_blocked_kernel(consts, tU, tV, ls, lengths, tQ, flat_e, q_ids0,
     max_sm = newton.SMOOTHINGS
     two_phase = bool(phase1) and phase1 < max_sm and NP >= 4 * PB
     p1 = phase1 if two_phase else max_sm
-    logl_s, pendant_s, distal_s, _, _, done_s = (
-        blo_optimize_batch_kernel_blocked(
-            consts, tU, tV, tQ, flat_e_p, q_ids_p, pb_p, sp_p, orig_p,
-            ls_sum, block_width=Wb, max_smoothings=p1,
-            skip=1.0 - fits.to(dtype), block_active=block_active))
+    kw = dict(block_width=Wb, counters=work is not None)
+    if has_pinv:
+        kw.update(invq=invq, ls=ls)
+    outA = blo_optimize_batch_kernel_blocked(
+        consts, tU, tV, tQ, flat_e_p, q_ids_p, pb_p, sp_p, orig_p,
+        ls_sum, max_smoothings=p1, skip=1.0 - fits.to(dtype),
+        block_active=block_active, **kw)
+    logl_s, pendant_s, distal_s, _, _, done_s = outA[:6]
+    if work is not None:
+        work.add(fits, outA[6:])
     computed_pair = fits
     if two_phase:
         # --- phase B: compact the unconverged tail into NP/4 pairs and
@@ -283,11 +297,14 @@ def _newton_blocked_kernel(consts, tU, tV, ls, lengths, tQ, flat_e, q_ids0,
         idx2 = torch.argsort(key, stable=True)[:NB]  # unconv first, in order
         fits2 = unconv[idx2]
         act2 = torch.any(fits2.reshape(NB // PB, PB), dim=1).to(torch.int32)
-        loglB, pendB, distB, _, _, _ = blo_optimize_batch_kernel_blocked(
+        outB = blo_optimize_batch_kernel_blocked(
             consts, tU, tV, tQ, flat_e_p[idx2], q_ids_p[idx2], pb_p[idx2],
-            sp_p[idx2], orig_p[idx2], ls_sum[idx2], block_width=Wb,
+            sp_p[idx2], orig_p[idx2], ls_sum[idx2],
             max_smoothings=max_sm, skip=1.0 - fits2.to(dtype),
-            block_active=act2)
+            block_active=act2, **kw)
+        loglB, pendB, distB = outB[:3]
+        if work is not None:
+            work.add(fits2, outB[6:])
         put = lambda x, y: x.index_copy(0, idx2,
                                         torch.where(fits2, y, x[idx2]))
         logl_s, pendant_s = put(logl_s, loglB), put(pendant_s, pendB)

@@ -134,9 +134,158 @@ def test_plain_matches_pallas_per_pair_interpret(f32_state):
                                         interpret=True)
     got = bk.blo_optimize_batch_kernel(st["tconsts"], *[T(a) for a in args])
     _compare(ref, got)
-    with pytest.raises(NotImplementedError):
-        bk.blo_optimize_batch_kernel(st["tconsts"], *[T(a) for a in args],
-                                     has_pinv=True)
+    # the +I call shape with pinv = 0 and no invariant term is the same
+    # arithmetic exactly (omp * f + 0 == f), and matches the JAX +I kernel
+    got_i = bk.blo_optimize_batch_kernel(st["tconsts"], *[T(a) for a in args],
+                                         has_pinv=True)
+    for a, b in zip(got, got_i):
+        assert torch.equal(a, b)
+    ref_i = jpb.blo_optimize_batch_pallas(st["eng"].consts, *args,
+                                          interpret=True, has_pinv=True)
+    _compare(ref_i, got_i)
+
+
+PINV = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}"
+        "+G4{0.6}+I{0.25}")
+
+
+@pytest.fixture(scope="module")
+def pinv_state():
+    """+I state on random data with invariant columns (16 taxa: about 4%
+    of random columns are invariant; the queries' random characters meet
+    their state a quarter of the time)."""
+    tree, ref, qry = synth_dataset(n_taxa=16, sites=S, n_queries=16,
+                                   seed=21)
+    eng = PlacementEngine(tree, ref, Model.from_string(PINV),
+                          Options(compute_dtype="f32"))
+    assert eng.model.pinv == 0.25
+    codes, qmasks, ranges = eng._encode_chunk(qry)
+    tQ, invq = eng._query_tensors(qmasks)
+    assert np.isfinite(np.asarray(invq)).any()
+    tconsts, tblo, _ = state_from_numpy(eng.consts, eng.blo,
+                                        eng.lookup_table, device="cpu")
+    return dict(eng=eng, blo=eng.blo, tblo=tblo, tQ=tQ, invq=invq,
+                ranges=ranges, tconsts=tconsts)
+
+
+def _assert_pv_bites(st, pe, pq, pb, sp):
+    """The pairs' invariant term is non-zero on some in-span site, so the
+    comparison is not vacuous."""
+    lin = np.exp(np.asarray(st["invq"])[pq] - np.asarray(st["blo"].ls)[pe])
+    site = np.arange(S)
+    span = (site[None] >= pb[:, None]) & (site[None] < (pb + sp)[:, None])
+    assert (lin[span] > 0).mean() > 0.005
+
+
+def test_plain_matches_pallas_blocked_pinv_interpret(pinv_state):
+    """K2: the +I blocked call shape. The JAX kernel gets the materialised
+    per-(pair, site) term pinv_lin = exp(invq[q] - ls[e]) [NP, S]; the port
+    reads invq and ls by query and edge id."""
+    st = pinv_state
+    blo, tQ, invq = st["blo"], st["tQ"], st["invq"]
+    pe, pq, pb, sp = _pairs(st, 256, seed=4)
+    _assert_pv_bites(st, pe, pq, pb, sp)
+    offs, Wb = jpb.plan_blocks_pairs(pb, pb + sp, S)
+    Wk = bk.kernel_width(sp)
+    local = pb - np.repeat(offs, jpb.PB)
+    w = np.arange(Wb)
+    bmask = ((w[None] >= local[:, None])
+             & (w[None] < (local + sp)[:, None])).astype(np.float32)
+    site = np.arange(S)
+    full = ((site[None] >= pb[:, None])
+            & (site[None] < (pb + sp)[:, None])).astype(np.float32)
+    ls_sum = (full * np.asarray(blo.ls)[pe]).sum(1).astype(np.float32)
+    ref = jpb.blo_optimize_batch_pallas_blocked(
+        st["eng"].consts, blo.tU[pe], blo.tV[pe], tQ[pq],
+        jnp.asarray(bmask), blo.lengths[pe], jnp.asarray(offs),
+        jnp.asarray(ls_sum), block_width=Wb, interpret=True,
+        pinv_lin=jnp.exp(invq[pq] - blo.ls[pe]))
+    tb = st["tblo"]
+    got = bk.blo_optimize_batch_kernel_blocked(
+        st["tconsts"], tb.tU, tb.tV, T(tQ), T(pe), T(pq), T(pb), T(sp),
+        tb.lengths[T(pe).long()], T(ls_sum), Wk, invq=T(invq), ls=tb.ls)
+    _compare(ref, got)
+    rel = np.abs(np.asarray(ref[0]) - got[0].numpy()) / np.abs(
+        np.asarray(ref[0]))
+    assert np.median(rel) < 1e-6
+    # the invariant term moves the answer: with it zeroed the logl differs
+    no_pv = bk.blo_optimize_batch_kernel_blocked(
+        st["tconsts"], tb.tU, tb.tV, T(tQ), T(pe), T(pq), T(pb), T(sp),
+        tb.lengths[T(pe).long()], T(ls_sum), Wk,
+        invq=torch.full_like(T(invq), -torch.inf), ls=tb.ls)
+    assert (no_pv[0] - got[0]).abs().max() > 0.05
+
+
+def _per_pair_args(st, pe, pq, pb, sp, W, inv):
+    blo, tQ = st["blo"], st["tQ"]
+    wb = np.minimum(pb, S - W)
+    idx = wb[:, None] + np.arange(W)[None]
+    local = pb - wb
+    w = np.arange(W)
+    sm = ((w[None] >= local[:, None])
+          & (w[None] < (local + sp)[:, None])).astype(np.float32)
+    cut = lambda x, rows: np.take_along_axis(
+        np.asarray(x)[rows], idx[:, None, :], axis=2)
+    take = lambda x, rows: np.take_along_axis(np.asarray(x)[rows], idx,
+                                              axis=1)
+    args = (cut(blo.tU, pe), cut(blo.tV, pe), cut(tQ, pq),
+            take(blo.ls, pe), sm, np.asarray(blo.lengths)[pe],
+            take(inv, pq) if inv is not None
+            else np.full(sm.shape, -np.inf, np.float32))
+    return tuple(jnp.asarray(a) for a in args)
+
+
+def test_plain_matches_pallas_per_pair_pinv_interpret(pinv_state):
+    """K4: the +I per-pair call shape on pre-sliced windows; the port
+    reads row b of inv_logfreq and ls for pair b."""
+    st = pinv_state
+    pe, pq, pb, sp = _pairs(st, 40, seed=2)
+    _assert_pv_bites(st, pe, pq, pb, sp)
+    W = 128
+    assert sp.max() <= W
+    args = _per_pair_args(st, pe, pq, pb, sp, W, st["invq"])
+    ref = jpb.blo_optimize_batch_pallas(st["eng"].consts, *args,
+                                        interpret=True, has_pinv=True)
+    got = bk.blo_optimize_batch_kernel(st["tconsts"], *[T(a) for a in args],
+                                       has_pinv=True)
+    _compare(ref, got)
+    rel = np.abs(np.asarray(ref[0]) - got[0].numpy()) / np.abs(
+        np.asarray(ref[0]))
+    assert np.median(rel) < 1e-6
+
+
+def test_plain_counters_match_pallas_count_iters(f32_state):
+    """K5: the port counts each pair's own executed smoothings and Newton
+    iterations; the TPU kernel counts lock-step trips per 128-pair block.
+    Per block whose pairs agree in logl within 1e-3, the block's smoothing
+    count is the maximum of the port's per-pair smoothings, and its trip
+    count (the sum over smoothings of the slowest lane's iterations, done
+    lanes included) is at least the maximum of the per-pair iterations."""
+    st = f32_state
+    pe, pq, pb, sp = _pairs(st, 256, seed=7)
+    W = 128
+    args = _per_pair_args(st, pe, pq, pb, sp, W, None)
+    ref = jpb.blo_optimize_batch_pallas(st["eng"].consts, *args,
+                                        interpret=True, count_iters=True)
+    got = bk.blo_optimize_batch_kernel(st["tconsts"], *[T(a) for a in args],
+                                       counters=True)
+    _compare(ref[:6], got[:6])
+    smooth, iters = got[6].numpy(), got[7].numpy()
+    assert ((smooth >= 1) & (smooth <= tnewton.SMOOTHINGS)).all()
+    assert ((iters >= 2 * smooth)
+            & (iters <= 2 * smooth * tnewton.MAX_ITERS)).all()
+    # the counted run is the same run
+    plain = bk.blo_optimize_batch_kernel(st["tconsts"],
+                                         *[T(a) for a in args])
+    assert torch.equal(plain[0], got[0])
+    trips, jsmooth = np.asarray(ref[6]), np.asarray(ref[7])
+    agree = (np.abs(np.asarray(ref[0]) - got[0].numpy()) < 1e-3).reshape(
+        -1, jpb.PB).all(axis=1)
+    assert agree.sum() >= 1
+    for b in np.nonzero(agree)[0]:
+        blk = slice(b * jpb.PB, (b + 1) * jpb.PB)
+        assert jsmooth[b] == smooth[blk].max()
+        assert trips[b] >= iters[blk].max()
 
 
 def test_kernel_scalars_match(f32_state):
@@ -159,9 +308,17 @@ def test_blo_supported_and_op_count(f32_state):
     # T in shared memory up to 96 KB per pair, device memory beyond
     assert bk.max_shared_sites(16) == 1536
     assert bk.max_shared_sites(32) == 768
+    # +I adds one sumtable row: 17 rows of 1440 sites stay within 96 KB
+    assert bk.max_shared_sites(16, has_pinv=True) == 1440
+    assert 17 * 1440 * 4 <= bk.MAX_RK_SITES * 4
     assert bk.kernel_width(np.array([1, 200, 33])) == 224
     assert bk.kernel_width(np.array([2000])) == 2016
-    # operation count grows with the executed work
+    # operation count grows with the executed work, and with +I
     a = bk.blo_op_count([100], [2], [10], 4)
     b = bk.blo_op_count([100], [3], [20], 4)
     assert 0 < a < b
+    assert bk.blo_op_count([100], [2], [10], 4, has_pinv=True) == (
+        a + 100 * (2 + 10 * 4 + 3 * 2))
+    # bytes: windows read once (+8 B per site with +I), ids and outputs
+    assert bk.blo_byte_count([100], 4) == 100 * 144 + 44
+    assert bk.blo_byte_count([100], 4, True, True) == 100 * 152 + 52

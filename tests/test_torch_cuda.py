@@ -29,24 +29,26 @@ def _card():
     return torch.device("cuda")
 
 
-def _state(dev, n_pairs, seed):
-    tree, ref, qry = synth_dataset(n_taxa=24, sites=200, n_queries=16,
-                                   seed=9)
-    eng = PlacementEngine(tree, ref, Model.from_string(GTR),
+def _state(dev, n_pairs, seed, model=GTR, n_taxa=24, data_seed=9,
+           with_invq=False):
+    tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=200, n_queries=16,
+                                   seed=data_seed)
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
                           Options(compute_dtype="f32"), device=dev)
     ec = eng.encode_msa(qry)
-    tQ, _ = eng._query_tensors_codes(ec.codes)
+    tQ, invq = eng._query_tensors_codes(ec.codes)
     rng = np.random.default_rng(seed)
     pe = rng.integers(0, eng.num_edges, n_pairs).astype(np.int32)
     pq = rng.integers(0, len(ec), n_pairs).astype(np.int32)
     pb = ec.ranges[pq, 0].astype(np.int32)
     sp = ec.ranges[pq, 1].astype(np.int32)
     d = lambda x: torch.as_tensor(x, device=dev)
-    return eng, tQ, d(pe), d(pq), d(pb), d(sp)
+    out = (eng, tQ, d(pe), d(pq), d(pb), d(sp))
+    return out + (invq,) if with_invq else out
 
 
-def _assert_matches_plain(got, tables, args, width, logl_tol=0.05):
-    ref = bk.blo_newton_plain(tables, *args, width)
+def _assert_matches_plain(got, tables, args, width, logl_tol=0.05, **kw):
+    ref = bk.blo_newton_plain(tables, *args, width, **kw)
     d = (got[0] - ref[0]).abs().cpu().numpy()
     assert (d < logl_tol).all(), d.max()
     sharp = d < 1e-3
@@ -151,6 +153,143 @@ def test_engine_wide_windows_take_the_kernel(monkeypatch):
     width = bk.kernel_width(spans)
     _assert_matches_plain(bk.blo_newton(tables, *args, width), tables, args,
                           width, logl_tol=0.05 * spans[pq] / 256.0)
+
+    assert [p.seq_id for p in got] == [p.seq_id for p in want]
+    close, agree = [], []
+    for x, y in zip(want, got):
+        close.append(abs(y.logls[0] - x.logls[0]) <= 1e-5 * abs(x.logls[0]))
+        ll = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
+        agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
+                     >= x.logls[0] - 1e-5 * abs(x.logls[0]))
+    assert np.mean(close) >= 0.9 and np.mean(agree) >= 0.9
+
+
+PINV = GTR + "+I{0.25}"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", ["blocked", "per_pair"])
+@pytest.mark.parametrize("home", ["shared", "device"])
+def test_pinv_kernel_matches_plain_on_card(shape, home):
+    """The +I kernel (K2 blocked, K4 per-pair) against its plain version on
+    the card, with the sumtable (and its pv row) in shared memory (width
+    256) and in device memory (past max_shared_sites(16, True) = 1440)."""
+    dev = _card()
+    eng, tQ, pe, pq, pb, sp, invq = _state(dev, 512, seed=8, model=PINV,
+                                           n_taxa=16, data_seed=21,
+                                           with_invq=True)
+    assert torch.isfinite(invq).any()
+    blo = eng.blo
+    width = 256 if home == "shared" else bk.max_shared_sites(16, True) + 64
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    omp = bk._omp(eng.consts, torch.float32)
+    before = bk.blo_newton.counts()
+    if shape == "blocked":
+        args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+                torch.zeros(len(pe), device=dev))
+        pinv = dict(invq=invq, ls=blo.ls, omp=omp)
+        got = bk.blo_newton(tables, *args, width, **pinv)
+    else:
+        # pre-sliced windows, zero-padded to the sumtable width
+        S = blo.tU.shape[2]
+        idx = (pb.long()[:, None]
+               + torch.arange(width, device=dev)[None]).clamp(max=S - 1)
+        on = torch.arange(width, device=dev)[None] < sp[:, None]
+        rk = torch.arange(16, device=dev)[None, :, None]
+        kq = torch.arange(4, device=dev)[None, :, None]
+        e, q = pe.long()[:, None, None], pq.long()[:, None, None]
+        z = on[:, None, :].float()
+        tu = blo.tU[e, rk, idx[:, None]] * z
+        tv = blo.tV[e, rk, idx[:, None]] * z
+        tq = tQ[q, kq, idx[:, None]] * z
+        lw = blo.ls[pe.long()[:, None], idx] * on
+        iv = torch.where(on, invq[pq.long()[:, None], idx], -torch.inf)
+        ids = torch.arange(len(pe), device=dev, dtype=torch.int32)
+        begin0 = torch.zeros_like(pb)
+        args = (tu, tv, tq, ids, ids, begin0, sp, blo.lengths[pe.long()],
+                torch.zeros(len(pe), device=dev))
+        pinv = dict(invq=iv, ls=lw, omp=omp)
+        got = bk.blo_optimize_batch_kernel(
+            eng.consts, tu, tv, tq, lw, on.float(), blo.lengths[pe.long()],
+            iv, has_pinv=True)
+        got = (got[0] - (on * lw).sum(1), got[1], got[3])
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    assert after["launches"] == before["launches"] + 1
+    assert after["pinv_launches"] == before["pinv_launches"] + 1
+    _assert_matches_plain(got, tables, args, width, **pinv)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", [GTR, PINV])
+def test_kernel_counters_match_plain_on_card(model):
+    """K5: the kernel's per-pair executed smoothings and Newton iterations
+    equal its plain version's on at least 99% of the pairs (a pair whose
+    f32 trajectory parts takes another count), and turning the counters on
+    changes no result."""
+    dev = _card()
+    eng, tQ, pe, pq, pb, sp, invq = _state(dev, 512, seed=9, model=model,
+                                           n_taxa=16, data_seed=21,
+                                           with_invq=True)
+    blo = eng.blo
+    args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+            torch.zeros(len(pe), device=dev))
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    pinv = {}
+    if model == PINV:
+        pinv = dict(invq=invq, ls=blo.ls,
+                    omp=bk._omp(eng.consts, torch.float32))
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, 256, counters=True, **pinv)
+    plain_run = bk.blo_newton(tables, *args, 256, **pinv)
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    assert after["counted_launches"] == before["counted_launches"] + 1
+    for a, b in zip(got[:5], plain_run):
+        assert torch.equal(a, b)
+    ref = bk.blo_newton_plain(tables, *args, 256, counters=True, **pinv)
+    for k, r in zip(got[5:], ref[5:]):
+        same = (k.long() == r).float().mean().item()
+        assert same >= 0.99, same
+
+
+@pytest.mark.requires_cuda
+def test_engine_pinv_takes_the_kernel(monkeypatch):
+    """A +I model on data with invariant columns places through the +I
+    kernel on the card (fused step and exact path), never through the
+    torch Newton or the kernel's plain version, and agrees with the port's f64 CPU engine: best logl
+    within 1e-5 relative and the top edge up to ties on >= 90% of
+    queries (the wide-window test's rule)."""
+    from chip_smoke import with_invariant_sites
+    dev = _card()
+    tree, ref, qry, _ = evolved_dataset(n_taxa=32, sites=300, n_queries=64,
+                                        seed=6, model_str=GTR)
+    ref, qry, _ = with_invariant_sites(ref, qry, (0.27, 0.23, 0.24, 0.26),
+                                       0.2, seed=2)
+    model = "GTR+IC+G4"
+    cpu = PlacementEngine(tree, ref, Model.from_string(model), Options(),
+                          device="cpu")
+    want = cpu.place_chunk(qry) + cpu._place_chunk_exact(
+        cpu.encode_msa(qry), 0)
+
+    def no_twin(*a, **k):
+        raise AssertionError("the torch Newton ran on the card")
+
+    monkeypatch.setattr(tnewton, "blo_optimize_batch", no_twin)
+    monkeypatch.setattr(bk, "blo_newton_plain", no_twin)
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
+                          Options(compute_dtype="f32"), device=dev)
+    assert eng.model.pinv > 0.2
+    before = bk.blo_newton.counts()
+    got = eng.place_chunk(qry)
+    got += eng._place_chunk_exact(eng.encode_msa(qry), 0)
+    after = bk.blo_newton.counts()
+    assert after["pinv_launches"] > before["pinv_launches"]
+    assert after["launches"] - before["launches"] == (
+        after["pinv_launches"] - before["pinv_launches"])
+    work = eng.newton_work.totals()
+    assert work["newton_pairs"] > 0
+    assert work["newton_iters"] >= 2 * work["newton_smoothings"]
 
     assert [p.seq_id for p in got] == [p.seq_id for p in want]
     close, agree = [], []

@@ -79,6 +79,7 @@ def test_cli_parity_synth_files(tmp_path):
     (GTR, ()),
     ("HKY+I{0.2}+G4", ("--chunk-size", "24")),
     (GTR, ("--baseball-heur", "--filter-acc-lwr", "0.99")),
+    ("GTR+IC+G4", ()),
 ])
 def test_cli_parity_evolved(tmp_path, model, extra):
     tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=160, n_queries=64,
@@ -135,12 +136,18 @@ def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("model", ["LG+G4", "HKY+I{0.2}+G4", "GTR+IC+G4",
-                                   "BIN+G4", "GTGTR4+G4"])
-def test_cuda_refuses_unported_models(model):
-    """On the card only single-matrix DNA without +I runs; the check needs
-    no card (it refuses before any tensor is made)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("model,refused", [
+    ("LG+G4", True), ("LG+I+G4", True), ("BIN+G4", True),
+    ("GTGTR4+G4", True), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False)])
+def test_cuda_refuses_unported_models(model, refused):
+    """On the card single-matrix DNA runs, with or without +I (fixed or
+    empirical p-inv); protein, binary and genotype models are refused. The
+    check needs no card (it refuses before any tensor is made)."""
+    if refused:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            _check_device_model(torch.device("cuda"),
+                                Model.from_string(model))
+    else:
         _check_device_model(torch.device("cuda"), Model.from_string(model))
     _check_device_model(torch.device("cpu"), Model.from_string(model))
     _check_device_model(torch.device("cuda"), Model.from_string(GTR))

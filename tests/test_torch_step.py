@@ -105,6 +105,67 @@ def test_fused_step_kernel_branch_matches_jax(chunk):
     np.testing.assert_allclose(out[2][rows], ref[2][rows], atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def pinv_chunk():
+    """A +I chunk: evolved data with 20% of its columns made invariant
+    (chip_smoke.with_invariant_sites), placed under GTR+I{0.2}+G4."""
+    from chip_smoke import with_invariant_sites
+    tree, ref, qry, _ = evolved_dataset(n_taxa=32, sites=160, n_queries=64,
+                                        seed=2)
+    freqs = (0.27, 0.23, 0.24, 0.26)
+    ref, qry, cols = with_invariant_sites(ref, qry, freqs, 0.2, seed=1)
+    assert len(cols) == 32
+    eng = PlacementEngine(tree, ref, Model.from_string(
+        "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
+        "+G4{0.6}"), Options())
+    ec = eng.encode_msa(qry)
+    perm = np.argsort(ec.ranges[:, 0], kind="stable")
+    codes, ranges = ec.codes[perm], ec.ranges[perm]
+    tQ, invq = eng._query_tensors_codes(codes)
+    assert np.isfinite(np.asarray(invq)).mean() > 0.05
+    blo = eng.blo
+    jargs = (eng.consts, eng.lookup_table, blo.tU, blo.tV, blo.ls,
+             blo.lengths, jnp.asarray(codes), jnp.asarray(ranges[:, 0]),
+             jnp.asarray(ranges[:, 1]), tQ, invq,
+             jnp.asarray(0.99999, jnp.float64))
+    consts, blo_t, table = state_from_numpy(eng.consts, blo,
+                                            eng.lookup_table, device="cpu")
+    targs = (consts, table, *blo_t, *(T(a) for a in jargs[6:11]), 0.99999)
+    W = jmesh.chunk_site_width(ranges[:, 1], 160)
+    ref_out = jmesh.placement_step(*jargs, topk=TOPK, site_width=W,
+                                   use_pallas=False, has_pinv=True)
+    return dict(targs=targs, W=W, ranges=ranges,
+                ref=[np.asarray(x) for x in ref_out])
+
+
+def test_fused_step_kernel_branch_pinv_matches_jax(pinv_chunk):
+    """The kernel branch with +I (K2's call shape, the plain version on CPU
+    tensors, counting its work) against the JAX step, under the rule of
+    test_fused_step_kernel_branch_matches_jax."""
+    chunk = pinv_chunk
+    Wk = bk.kernel_width(chunk["ranges"][:, 1])
+    work = bk.NewtonWork("cpu")
+    out = [x.numpy() for x in tmesh.placement_step(
+        *chunk["targs"], topk=TOPK, site_width=chunk["W"], use_kernel=True,
+        block_width=Wk, has_pinv=True, work=work)]
+    ref = chunk["ref"]
+    np.testing.assert_array_equal(out[0], ref[0])
+    np.testing.assert_array_equal(out[5], ref[5])
+    ok = ref[5] & (ref[6] > 0) & (out[6] > 0)
+    assert ok.sum() >= 0.5 * ref[5].sum()
+    np.testing.assert_allclose(out[1][ok], ref[1][ok], rtol=1e-6)
+    sharp = ok & (np.abs(out[1] - ref[1]) < 1e-3)
+    for i in (3, 4):
+        d = np.abs(out[i] - ref[i])[sharp]
+        assert np.quantile(d, 0.9) < 0.01
+    rows = np.all(~ref[5] | (out[6] > 0), axis=1)
+    np.testing.assert_allclose(out[2][rows], ref[2][rows], atol=1e-6)
+    # the kernel's counters reached the work tally: every computed pair
+    # ran at least one smoothing of two Newton solves
+    pairs, smooth, iters = work.totals().values()
+    assert pairs >= ok.sum() and smooth >= pairs and iters >= 2 * smooth
+
+
 def test_fused_step_packed_and_filtered(chunk):
     """The engine's call shape: packed, LWR-sorted and output-filtered on
     device; identical to the JAX package's twin."""
