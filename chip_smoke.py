@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card: name and power limit from nvidia-smi, cross-checked against
    torch.cuda.get_device_name;
 2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc, its two
-   libraries (without and with the +I term) side by side;
+   libraries (without and with the +I term) side by side, and print each
+   instantiation's registers and spill;
 3. hold the kernel against its plain PyTorch version on the card, in f32
    and in f64, for both call shapes (blocked: full stores + per-pair
    windows, with the sumtable in shared and in device memory; per-pair:
@@ -17,6 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
 3b. the same for the +I kernel (K2 blocked, K4 per-pair) on the +I cell's
    pairs, with the share of in-span (pair, site) cells whose invariant
    term is > 0;
+3c-3e. the same for the K = 20 instantiations: LG+G4{0.8} on the protein
+   path's pairs, the four-component mixture on the mixture path's, and
+   LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns;
 4. the main path: ``epa_ng_tpu_torch.cli.main`` places 8192 evolved
    queries on a 512-taxon, 512-site tree under
    GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}, chunk 1024
@@ -24,11 +28,18 @@ Phases (any failure exits non-zero and prints no result line):
    counts reset just before and read just after;
 4b. the +I main path: the same shape with 20% of the columns made
    invariant (:func:`with_invariant_sites`) under the same model +I{0.2};
+4c. the protein main path: 2048 LG-evolved queries on 256 taxa x 256
+   sites under LG+G4{0.8}, chunk 512 (the JAX bench's ``aa`` shape);
+4d. the mixture main path: 1024 random protein queries on 128 taxa x 256
+   sites under four LG-derived components +G4{0.9}, chunk 512 (the JAX
+   bench's ``mixture`` cell); every main path must launch only its own
+   instantiation, always with the counters, and never the torch Newton;
 5. correctness on a small input: the card's f32 placements against the
    port's own f64 CPU run (plain paths) of the same files, under the main
-   model and under +IC on data with invariant columns;
-6. both main paths once more under torch.profiler (device time by kernel,
-   busy share).
+   model, under +IC on data with invariant columns, and under LG+G4, the
+   mixture and LG+IC+G4;
+6. the DNA, +I and protein main paths once more under torch.profiler
+   (device time by kernel, busy share).
 
 ``python3 chip_smoke.py --fmad-ab`` runs phases 1-2 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
@@ -57,6 +68,19 @@ PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
 IC_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+IC"
             "+G4{0.6}")
 INVARIANT_SHARE = 0.2    # of the +I cells' columns
+# protein (K = 20): the JAX bench's ``aa`` and ``mixture`` cells
+# (bench.py:278-287, :398-423)
+AA_MODEL = "LG+G4{0.8}"
+AA_PINV_MODEL = "LG+I{0.2}+G4{0.8}"
+AA_IC_MODEL = "LG+IC+G4{0.8}"
+MIXTURE = "SMOKEMIX4M"   # four LG-derived components, gamma-coupled
+MIX_MODEL = MIXTURE + "+G4{0.9}"
+AA = "ARNDCQEGHILKMFPSTWYV"
+# small references at K = 20 (taxa, sites, queries, --no-heur queries):
+# smaller than the DNA one's, as the f64 CPU run they are held against
+# does 5x the rate-state lanes per site at RK = 80
+AA_SMALL = (48, 200, 128, 32)
+MIX_SMALL = (32, 160, 96, 24)
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -86,16 +110,27 @@ def card_line() -> str:
 
 def ptxas_summary(log: str) -> list:
     """nvcc's -Xptxas -v output as one entry per kernel instantiation:
-    "R<rates> <shared|device> <plain|pinv>: <n> regs, <b> B spill"."""
+    "R<rates> <shared|device> <plain|pinv>: <n> regs, <b> B spill" for the
+    DNA ones, "K20 <single|mixture> <shared|device> <plain|pinv>: ..." for
+    the K = 20 ones (rate count at run time)."""
     import re
     out, cur = [], None
+    home = lambda b: "device" if b == "1" else "shared"
+    flavour = lambda b: "pinv" if b == "1" else "plain"
     for ln in log.splitlines():
         m = re.search(r"Function properties for \S*blo_newton_kernel"
                       r"ILi(\d+)ELb([01])ELb([01])E", ln)
         if m:
-            home = "device" if m.group(2) == "1" else "shared"
-            flavour = "pinv" if m.group(3) == "1" else "plain"
-            cur, spill = f"R{m.group(1)} {home} {flavour}", None
+            cur = f"R{m.group(1)} {home(m.group(2))} {flavour(m.group(3))}"
+            spill = None
+            continue
+        m = re.search(r"Function properties for \S*blo_newton_wide_kernel"
+                      r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", ln)
+        if m:
+            kind = "mixture" if m.group(2) == "1" else "single"
+            cur = (f"K{m.group(1)} {kind} {home(m.group(3))} "
+                   f"{flavour(m.group(4))}")
+            spill = None
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if cur and m:
@@ -105,7 +140,7 @@ def ptxas_summary(log: str) -> list:
         if cur and m:
             out.append(f"{cur}: {m.group(1)} regs, {spill} B spill")
             cur = None
-    return sorted(out, key=lambda s: (int(s.split()[0][1:]), s))
+    return sorted(out, key=lambda s: (s[0], int(s.split()[0][1:]), s))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -136,20 +171,51 @@ def write_data(tree, ref, qry, outdir):
     return paths
 
 
-def make_data(n_taxa, sites, n_queries, seed, outdir):
-    """Evolved reference + queries written as tree/FASTA files."""
+def make_data(n_taxa, sites, n_queries, seed, outdir, model=MODEL,
+              alphabet="ACGT"):
+    """Reference + queries evolved under ``model`` over ``alphabet``,
+    written as tree/FASTA files."""
     from epa_ng_tpu_torch.utils.synth import evolved_dataset
     tree, ref, qry, true_edges = evolved_dataset(
         n_taxa=n_taxa, sites=sites, n_queries=n_queries, seed=seed,
-        model_str=MODEL)
+        model_str=model, alphabet=alphabet)
     paths = write_data(tree, ref, qry, outdir)
     return (tree, ref, qry, true_edges), paths
 
 
-def with_invariant_sites(ref, qry, freqs, share, seed):
+def register_mixture():
+    """Register MIXTURE in the port's matrix-mixture table: four components
+    built as the JAX bench builds its mixture cell's (LG rates and
+    frequencies times exp(0.35 randn), RandomState(11)), gamma-coupled."""
+    import numpy as np
+
+    from epa_ng_tpu_torch.models import aa_matrices
+    rng = np.random.RandomState(11)
+    lg_r, lg_f = aa_matrices.MATRICES["LG"]
+    comps = []
+    for _ in range(4):
+        r = lg_r * np.exp(0.35 * rng.randn(190))
+        f = lg_f * np.exp(0.35 * rng.randn(20))
+        comps.append((r, f / f.sum()))
+    aa_matrices.MIXTURES[MIXTURE] = (comps, "gamma")
+
+
+def make_random_data(n_taxa, sites, n_queries, seed, outdir):
+    """Random protein reference + queries (``synth_dataset``, as the JAX
+    bench's mixture cell; ``evolved_dataset`` takes one matrix only),
+    written as files; no true edges."""
+    from epa_ng_tpu_torch.utils.synth import AA, synth_dataset
+    tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=sites,
+                                   n_queries=n_queries, seed=seed,
+                                   alphabet=AA)
+    return (tree, ref, qry, None), write_data(tree, ref, qry, outdir)
+
+
+def with_invariant_sites(ref, qry, freqs, share, seed, alphabet="ACGT"):
     """Copies of the alignments ``ref`` and ``qry`` in which a ``share`` of
     the columns (drawn with numpy from ``seed``) are invariant: every
-    reference row holds one state there, drawn from ``freqs`` (A, C, G, T),
+    reference row holds one state there, drawn from ``freqs`` over
+    ``alphabet`` (A, C, G, T by default; the 20 amino acids for protein),
     and every query's non-gap character in that column is set to the same
     state. Evolved data has few invariant columns of its own (none at 512
     taxa), so without this a +I model's invariant term is 0 everywhere.
@@ -161,8 +227,8 @@ def with_invariant_sites(ref, qry, freqs, share, seed):
     rng = np.random.default_rng(seed)
     cols = np.sort(rng.choice(S, size=int(round(share * S)), replace=False))
     p = np.asarray(freqs, np.float64)
-    states = np.frombuffer(b"ACGT", np.uint8)[
-        rng.choice(4, size=len(cols), p=p / p.sum())]
+    states = np.frombuffer(alphabet.encode(), np.uint8)[
+        rng.choice(len(alphabet), size=len(cols), p=p / p.sum())]
     gaps = np.frombuffer(b"-.?", np.uint8)
 
     def rebuild(msa, rows, query):
@@ -180,13 +246,18 @@ def with_invariant_sites(ref, qry, freqs, share, seed):
             rebuild(qry, [(s.header, as_arr(s)) for s in qry], True), cols)
 
 
-def make_pinv_data(data, seed, outdir):
+def make_pinv_data(data, seed, outdir, freqs=FREQS, alphabet="ACGT"):
     """The +I cell's data: ``data`` with INVARIANT_SHARE of its columns
-    made invariant, written as files."""
+    made invariant (states drawn from ``freqs``), written as files."""
     tree, ref, qry, true_edges = data
-    ref, qry, _ = with_invariant_sites(ref, qry, FREQS, INVARIANT_SHARE,
-                                       seed)
+    ref, qry, _ = with_invariant_sites(ref, qry, freqs, INVARIANT_SHARE,
+                                       seed, alphabet)
     return (tree, ref, qry, true_edges), write_data(tree, ref, qry, outdir)
+
+
+def lg_freqs():
+    from epa_ng_tpu_torch.models import aa_matrices
+    return aa_matrices.MATRICES["LG"][1]
 
 
 def main_path_pairs(data, device, n_pairs, model=MODEL):
@@ -291,15 +362,15 @@ def compare_counts(k_smooth, k_iters, p_smooth, p_iters):
                 mean_newton_iters=float(ki.mean()))
 
 
-def bound(sp, counts, R, has_pinv, counters=False):
+def bound(sp, counts, R, has_pinv, counters=False, K=4, mixture=False):
     """The least time the card could take for these pairs' work (ms), and
     what bounds it: bytes over the memory rate or operations over the f32
     rate, both counted from this run's spans and the kernel's own executed
     smoothings and Newton iterations."""
     from epa_ng_tpu_torch.ops import blo_kernel as bk
     smooth, iters = (t.cpu().numpy() for t in counts)
-    ops = bk.blo_op_count(sp, smooth, iters, R, has_pinv)
-    nbytes = bk.blo_byte_count(sp, R, has_pinv, counters)
+    ops = bk.blo_op_count(sp, smooth, iters, R, has_pinv, K)
+    nbytes = bk.blo_byte_count(sp, R, has_pinv, counters, K, mixture)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes > t_ops else "operations",
@@ -323,7 +394,10 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     orig, pinv = pr["orig"], pr["pinv"]
     Wk = bk.kernel_width(sp)
     R = int(eng.consts.rates.shape[0])
-    RK, K = blo.tU.shape[1], tQ.shape[1]
+    RK, Kq = blo.tU.shape[1], tQ.shape[1]
+    K = int(eng.consts.A.shape[-1])
+    mix = eng.consts.A.ndim == 3
+    shape = dict(K=K, mixture=mix)
     cuda = device == "cuda"
     inv_kw = dict(invq=pr["invq"], ls=blo.ls) if pinv else {}
     res = {}
@@ -341,7 +415,7 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     kout = blocked(Wk, counters=True)
     r = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
     r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
-    r.update(bound(sp, kout[6:], R, pinv))
+    r.update(bound(sp, kout[6:], R, pinv, **shape))
     r["ms"] = cuda_ms(lambda: blocked(Wk), reps) if cuda else None
     r["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, f64=False), 1)
                      if cuda else None)
@@ -358,7 +432,7 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
         kc = dict(compare((kout[0], kout[1], kout[3]), shift(p32),
                           shift(p64)))
         kc.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
-        kc.update(bound(sp, kout[6:], R, pinv, counters=True))
+        kc.update(bound(sp, kout[6:], R, pinv, counters=True, **shape))
         kc["ms"] = (cuda_ms(lambda: blocked(Wk, counters=True), reps)
                     if cuda else None)
         kc["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, counters=True,
@@ -368,7 +442,7 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
 
     # --- blocked again, sumtable in device memory (a stride wider than
     # shared memory takes; same pairs, so the same plain results)
-    Wg = bk.max_shared_sites(RK, pinv) + 32
+    Wg = bk.max_shared_sites(RK, pinv, K, mix) + 32
     kout = blocked(Wg)
     r = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
     r["ms"] = cuda_ms(lambda: blocked(Wg), reps) if cuda else None
@@ -383,7 +457,7 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     wb = torch.clamp(b_t, max=S - W).long()
     idx = wb[:, None] + torch.arange(W, device=eng.device)[None]
     rk = torch.arange(RK, device=eng.device)[None, :, None]
-    kq = torch.arange(K, device=eng.device)[None, :, None]
+    kq = torch.arange(Kq, device=eng.device)[None, :, None]
     e_l, q_l = e_t.long(), q_t.long()
     tu = blo.tU[e_l[:, None, None], rk, idx[:, None, :]]
     tv = blo.tV[e_l[:, None, None], rk, idx[:, None, :]]
@@ -404,7 +478,7 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
                 *[(p[0] + lw_sum.to(p[0].dtype), p[1], p[2])
                   for p in (p32, p64)])
     r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
-    r.update(bound(sp, kout[6:], R, pinv))
+    r.update(bound(sp, kout[6:], R, pinv, **shape))
     r["ms"] = cuda_ms(per_pair, reps) if cuda else None
     ids = torch.arange(len(sp), dtype=torch.int32, device=eng.device)
     pinv_pp = (dict(invq=iv, ls=lw, omp=pr["omp"]) if pinv else {})
@@ -488,16 +562,29 @@ def run_cli(paths, outdir, device, chunk, extra=(), model=MODEL):
 
 
 def main_path(paths, n_queries, true_edges, device, model=MODEL,
-              name="main"):
-    """Phases 4 and 4b: the CLI over the full shape; the kernel's launch
-    counts set to 0 just before and read just after."""
+              name="main", chunk=1024):
+    """Phases 4-4d: the CLI over the full shape; the kernel's launch
+    counts set to 0 just before and read just after, and the calls of the
+    torch Newton (``ops.newton.blo_optimize_batch``) counted in the run."""
     import numpy as np
 
+    from epa_ng_tpu_torch.ops import newton
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     outdir = os.path.join(OUT, name)
-    blo_newton.reset_counts()
-    stats, wall = run_cli(paths, outdir, device, chunk=1024, model=model)
-    counts = blo_newton.counts()
+    twin, twin_calls = newton.blo_optimize_batch, []
+
+    def counted_twin(*a, **k):
+        twin_calls.append(1)
+        return twin(*a, **k)
+
+    newton.blo_optimize_batch = counted_twin
+    try:
+        blo_newton.reset_counts()
+        stats, wall = run_cli(paths, outdir, device, chunk=chunk,
+                              model=model)
+        counts = blo_newton.counts()
+    finally:
+        newton.blo_optimize_batch = twin
     pl = read_jplace(os.path.join(outdir, "epa_result.jplace"))
     check(len(pl) == n_queries,
           f"{name}: jplace places {len(pl)} of {n_queries} queries")
@@ -509,40 +596,63 @@ def main_path(paths, n_queries, true_edges, device, model=MODEL,
           f"{name}: empty placement")
     best = np.array([pl[f"Q{i}"][0]["edge_num"] for i in range(n_queries)])
     pairs = max(stats["newton_pairs"], 1)
-    stats.update(cli_wall_s=wall, **counts,
+    stats.update(cli_wall_s=wall, **counts, twin_calls=len(twin_calls),
                  qps=stats["reads"] / stats["placing_s"],
-                 top_is_true_edge=float((best == true_edges).mean()),
+                 top_is_true_edge=(None if true_edges is None else
+                                   float((best == true_edges).mean())),
                  mean_smoothings=stats["newton_smoothings"] / pairs,
                  mean_newton_iters=stats["newton_iters"] / pairs)
     return stats
 
 
-def small_reference(device, model=MODEL, invariant_share=0.0, name="small"):
+def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
+                    alphabet="ACGT", freqs=FREQS, random_data=False,
+                    size=(64, 200, 256, 64), seed=5):
     """Phase 5: the card's f32 runs against the port's f64 CPU runs of the
-    same files: the default heuristic on 256 queries, and --no-heur (every
-    pair through the exact path's kernel slabs) on 64 of them. Short reads
-    often tie exactly between edges that meet at a node, so a top edge
-    counts as agreeing when the f64 run scores it within 1e-5 relative of
-    its own best; the best logl itself must agree everywhere. With an
-    ``invariant_share`` that share of the columns is made invariant."""
+    same files: the default heuristic on all queries, and --no-heur (every
+    pair through the exact path's kernel slabs) on the first few. Short
+    reads often tie exactly between edges that meet at a node, so a top
+    edge counts as agreeing when the f64 run scores it within 1e-5 relative
+    of its own best; the best logl itself must agree everywhere. The data
+    are evolved under ``model`` over ``alphabet`` (``random_data``: random,
+    as for a mixture) at ``size`` = (taxa, sites, queries, --no-heur
+    queries); with an ``invariant_share`` that share of the columns is
+    made invariant (states from ``freqs``); ``seed`` makes the data.
+    Returns the agreement per configuration and the kernel's launch
+    counts over the card's runs."""
     import numpy as np
+
+    from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.utils.synth import write_fasta
     outdir = os.path.join(OUT, name)
-    (tree, ref, qry, _), paths = make_data(64, 200, 256, 5, outdir)
+    n_taxa, sites, n_queries, n_few = size
+    if random_data:
+        (tree, ref, qry, _), paths = make_random_data(n_taxa, sites,
+                                                      n_queries, seed, outdir)
+    else:
+        (tree, ref, qry, _), paths = make_data(
+            n_taxa, sites, n_queries, seed, outdir,
+            model=MODEL if alphabet == "ACGT" else AA_MODEL,
+            alphabet=alphabet)
     if invariant_share:
-        ref, qry, _ = with_invariant_sites(ref, qry, FREQS,
-                                           invariant_share, 5)
+        ref, qry, _ = with_invariant_sites(ref, qry, freqs, invariant_share,
+                                           seed, alphabet)
         paths = write_data(tree, ref, qry, outdir)
-    few = os.path.join(outdir, "query64.fasta")
-    write_fasta(_head(qry, 64), few)
+    few = os.path.join(outdir, f"query{n_few}.fasta")
+    write_fasta(_head(qry, n_few), few)
+    # random reads tie across more edges than the default --filter-max (7)
+    # keeps, and each run would keep another 7 of the tied edges: keep
+    # them all, so the f64 run scores whichever the card put on top
+    keep = ("--filter-max", "256") if random_data else ()
     out = {}
-    for cfg, qpath, extra, n in (("dyn", paths[2], (), 256),
-                                 ("noheur", few, ("--no-heur",), 64)):
+    blo_newton.reset_counts()
+    for cfg, qpath, extra, n in (("dyn", paths[2], (), n_queries),
+                                 ("noheur", few, ("--no-heur",), n_few)):
         runs = []
         for dev in (device, "cpu"):
             d = os.path.join(outdir, f"{cfg}_{dev}")
             run_cli((paths[0], paths[1], qpath), d, dev, chunk=256,
-                    extra=extra, model=model)
+                    extra=extra + keep, model=model)
             runs.append(read_jplace(os.path.join(d, "epa_result.jplace")))
         a, b = runs
         check(a.keys() == b.keys() and len(a) == n,
@@ -562,10 +672,11 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small"):
         out[cfg] = dict(top_edge_identical=float(np.mean(
             [a[q][0]["edge_num"] == b[q][0]["edge_num"] for q in a])),
             top_edge_up_to_ties=tie, max_rel_best_logl=rel)
+    out["launches"] = blo_newton.counts()
     return out
 
 
-def profile_main(paths, device, model=MODEL, name="profiled"):
+def profile_main(paths, device, model=MODEL, name="profiled", chunk=1024):
     """Phase 6: a main path once more under torch.profiler: device time by
     kernel and the device's busy share of the CLI run (reference build +
     placement; profiling adds host overhead, so the share is a lower bound
@@ -575,7 +686,7 @@ def profile_main(paths, device, model=MODEL, name="profiled"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         stats, wall = run_cli(paths, os.path.join(OUT, name), device,
-                              chunk=1024, model=model)
+                              chunk=chunk, model=model)
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
     # device-side (kernel, memcpy) events only: the CPU ops that launched
@@ -603,6 +714,35 @@ def check_parity(tag, res):
             check(r["counts_equal"] >= COUNTS_EQUAL_MIN,
                   f"{tag} {name}: kernel counters equal the plain "
                   f"version's on {r['counts_equal']:.4f} of pairs")
+
+
+def parity_phase(tag, data, model):
+    """One parity phase on the card, printed and checked."""
+    res = kernel_parity(data, "cuda", model=model)
+    for k, v in res.items():
+        print(f"{tag} {k}: " + json.dumps(v), flush=True)
+    check_parity(tag, res)
+    if "pv" in res:
+        check(res["pv"]["share_positive"] > 0,
+              f"{tag}: the invariant term is 0 on every in-span cell")
+    return res
+
+
+def check_main(tag, st, family, pinv=False):
+    """A main path launched the kernel's ``family`` instantiation and only
+    it, every launch with the counters (and with +I iff ``pinv``), and
+    never ran the torch Newton."""
+    check(st[family] > 0, f"{tag}: the {family} instantiation never ran")
+    check(st[family] == st["launches"],
+          f"{tag}: {st['launches'] - st[family]} launches of another "
+          f"instantiation than {family}")
+    check(st["pinv_launches"] == (st["launches"] if pinv else 0),
+          f"{tag}: {st['pinv_launches']} of {st['launches']} launches "
+          "with +I")
+    check(st["counted_launches"] == st["launches"],
+          f"{tag}: launched the kernel without its counters")
+    check(st["twin_calls"] == 0,
+          f"{tag}: the torch Newton ran {st['twin_calls']} times")
 
 
 def kernel_entry(name, replaces, launches, r, **extra):
@@ -670,40 +810,44 @@ def main(argv=()) -> int:
         print(f"data: 512 taxa x 512 sites, {n_queries} queries, and the "
               f"+I copy with {INVARIANT_SHARE:.0%} invariant columns in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        n_aa, n_mix = 2048, 1024
+        adata, apaths = make_data(256, 256, n_aa, 0,
+                                  os.path.join(OUT, "data_aa"),
+                                  model=AA_MODEL, alphabet=AA)
+        apdata, _ = make_pinv_data(adata, 0,
+                                   os.path.join(OUT, "data_aa_pinv"),
+                                   lg_freqs(), AA)
+        register_mixture()
+        mdata, mpaths = make_random_data(128, 256, n_mix, 13,
+                                         os.path.join(OUT, "data_mix"))
+        print(f"protein data: 256 taxa x 256 sites, {n_aa} evolved LG "
+              f"queries and the +I copy; mixture 128 x 256, {n_mix} random "
+              f"queries; in {time.perf_counter() - t0:.2f} s", flush=True)
 
-        # phase 3: kernel vs plain version, counters (K1/K3, K5)
-        par = kernel_parity(data, "cuda")
-        for k, v in par.items():
-            print(f"parity {k}: " + json.dumps(v), flush=True)
-        check_parity("parity", par)
+        # phases 3-3e: each instantiation vs its plain version, counters
+        par = parity_phase("parity", data, MODEL)
+        ppar = parity_phase("+I parity", pdata, PINV_MODEL)
+        apar = parity_phase("K=20 parity", adata, AA_MODEL)
+        mpar = parity_phase("mixture parity", mdata, MIX_MODEL)
+        appar = parity_phase("K=20 +I parity", apdata, AA_PINV_MODEL)
 
-        # phase 3b: the +I kernel (K2 blocked, K4 per-pair)
-        ppar = kernel_parity(pdata, "cuda", model=PINV_MODEL)
-        for k, v in ppar.items():
-            print(f"+I parity {k}: " + json.dumps(v), flush=True)
-        check_parity("+I parity", ppar)
-        check(ppar["pv"]["share_positive"] > 0,
-              "+I parity: the invariant term is 0 on every in-span cell")
-
-        # phase 4: the main path
+        # phases 4-4d: the main paths, each with its counts reset
         stats = main_path(paths, n_queries, data[3], "cuda")
         print("main path: " + json.dumps(stats), flush=True)
-        check(stats["launches"] > 0, "the main path never launched "
-              "the CUDA kernel")
-        check(stats["pinv_launches"] == 0, "the main path ran the +I kernel")
-        check(stats["counted_launches"] == stats["launches"],
-              "the main path launched the kernel without its counters")
-
-        # phase 4b: the +I main path
+        check_main("main path", stats, "k4_launches")
         pstats = main_path(ppaths, n_queries, pdata[3], "cuda",
                            model=PINV_MODEL, name="main_pinv")
         print("+I main path: " + json.dumps(pstats), flush=True)
-        check(pstats["pinv_launches"] > 0, "the +I main path never "
-              "launched the +I kernel")
-        check(pstats["pinv_launches"] == pstats["launches"],
-              "the +I main path launched the kernel without +I")
-        check(pstats["counted_launches"] == pstats["launches"],
-              "the +I main path launched the kernel without its counters")
+        check_main("+I main path", pstats, "k4_launches", pinv=True)
+        astats = main_path(apaths, n_aa, adata[3], "cuda", model=AA_MODEL,
+                           name="main_aa", chunk=512)
+        print("protein main path: " + json.dumps(astats), flush=True)
+        check_main("protein main path", astats, "k20_launches")
+        mstats = main_path(mpaths, n_mix, None, "cuda", model=MIX_MODEL,
+                           name="main_mix", chunk=512)
+        print("mixture main path: " + json.dumps(mstats), flush=True)
+        check_main("mixture main path", mstats, "mixture_launches")
 
         # phase 5: small-input references
         small = small_reference("cuda")
@@ -712,6 +856,31 @@ def main(argv=()) -> int:
                                    invariant_share=INVARIANT_SHARE,
                                    name="small_ic")
         print("small reference +IC: " + json.dumps(small_ic), flush=True)
+        small_aa = small_reference("cuda", model=AA_MODEL, name="small_aa",
+                                   alphabet=AA, size=AA_SMALL)
+        print("small reference LG+G4: " + json.dumps(small_aa), flush=True)
+        small_mix = small_reference("cuda", model=MIX_MODEL,
+                                    name="small_mix", random_data=True,
+                                    size=MIX_SMALL)
+        print("small reference mixture: " + json.dumps(small_mix),
+              flush=True)
+        # seed 8: on the data of seeds 5-7, 9 and 11 one query's best edge
+        # meets the f32 Newton stall at the pendant's lower bound, which
+        # the kernel shares with the TPU kernel's arithmetic and the f32
+        # plain version repeats (PERF.md; ROADMAP 3 D); the parity phases
+        # count it on every run (pairs_off_f64)
+        small_aa_ic = small_reference("cuda", model=AA_IC_MODEL,
+                                      invariant_share=INVARIANT_SHARE,
+                                      name="small_aa_ic", alphabet=AA,
+                                      freqs=lg_freqs(), size=AA_SMALL,
+                                      seed=8)
+        print("small reference LG+IC+G4: " + json.dumps(small_aa_ic),
+              flush=True)
+        aa_ic = small_aa_ic["launches"]
+        check(aa_ic["pinv_launches"] > 0
+              and aa_ic["pinv_launches"] == aa_ic["k20_launches"]
+              == aa_ic["launches"],
+              f"LG+IC+G4 small reference: K=20 +I launches {aa_ic}")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -719,8 +888,14 @@ def main(argv=()) -> int:
         pprof = profile_main(ppaths, "cuda", model=PINV_MODEL,
                              name="profiled_pinv")
         print("+I profile: " + json.dumps(pprof), flush=True)
+        aprof = profile_main(apaths, "cuda", model=AA_MODEL,
+                             name="profiled_aa", chunk=512)
+        print("protein profile: " + json.dumps(aprof), flush=True)
 
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
+        shapes = lambda p: {k: p[k] for k in ("blocked",
+                                              "blocked_device_memory",
+                                              "per_pair", "pv") if k in p}
         kernels = [
             kernel_entry(
                 "blo_newton", "epa_ng_tpu/ops/pallas_blo.py:117",
@@ -750,15 +925,35 @@ def main(argv=()) -> int:
                 "blo_newton_counted", "epa_ng_tpu/ops/pallas_blo.py:86",
                 stats["counted_launches"] + pstats["counted_launches"],
                 par["counted"],
-                launches_note="counted launches over both main paths",
+                launches_note="counted launches over both DNA main paths",
                 parity={"counted": par["counted"], **tol}),
+            kernel_entry(
+                "blo_newton K=20", "epa_ng_tpu/ops/pallas_blo.py:117",
+                astats["k20_launches"], apar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation="LG+G4{0.8}: K = 20, one matrix, R = 4",
+                parity={**shapes(apar), **tol}),
+            kernel_entry(
+                "blo_newton mixture", "epa_ng_tpu/ops/pallas_blo.py:117",
+                mstats["mixture_launches"], mpar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation=f"{MIX_MODEL}: K = 20, per-rate tables and "
+                "tip, R = 4",
+                parity={**shapes(mpar), **tol}),
+            kernel_entry(
+                "blo_newton_pinv K=20", "epa_ng_tpu/ops/pallas_blo.py:174",
+                aa_ic["pinv_launches"], appar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                instantiation="LG+I{0.2}+G4{0.8}: K = 20 with +I, R = 4",
+                launches_note="launches of the card's LG+IC+G4 small "
+                "reference run (phase 5): protein +I has no main path of "
+                "its own",
+                parity={**shapes(appar), **tol}),
         ]
-        for sub in ("data", "data_pinv", "small", "small_ic", "profiled",
-                    "profiled_pinv"):
-            for root, _, files in os.walk(os.path.join(OUT, sub)):
-                for f in files:
-                    if f.endswith(".fasta"):
-                        os.remove(os.path.join(root, f))
+        for root, _, files in os.walk(OUT):
+            for f in files:
+                if f.endswith(".fasta"):
+                    os.remove(os.path.join(root, f))
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -7,15 +7,16 @@ device stages:
 1. one [queries x edges] GEMM against the precomputed lookup tensor
    (preplacement), and
 2. one batched Newton over the compacted candidate pairs (thorough
-   placement) — the CUDA kernel on the card for DNA f32 (ops.blo_kernel),
-   the torch twin elsewhere (ops.newton),
+   placement) — the CUDA kernel on the card in f32 (ops.blo_kernel), the
+   torch twin elsewhere (ops.newton),
 
 fused into one step per chunk (parallel.mesh.placement_step), with the
 ragged candidate sets padded to fixed-size blocks.
 
-On cuda this slice runs single-matrix DNA models without +I; protein,
-mixture, +I, binary and genotype models raise "not yet ported" there (they
-run on the CPU through the plain paths).
+On cuda the port runs DNA and protein models, single-matrix with or
+without +I, and protein matrix mixtures (LG4M/LG4X); binary and genotype
+models raise "not yet ported" there (they run on the CPU through the
+plain paths).
 """
 
 from __future__ import annotations
@@ -906,19 +907,18 @@ def state_from_numpy(consts, blo, table, dtype=None, device="cuda"):
 
 
 def _check_device_model(device: torch.device, model: Model):
-    """On the card the port places single-matrix DNA models, with or
-    without +I (``+I{p}``, ``+IU{p}``, the empirical ``+IC``); everything
-    else raises rather than running the plain paths there."""
+    """On the card the port places DNA (4-state) and protein (20-state)
+    models with one substitution matrix, with or without +I (``+I{p}``,
+    ``+IU{p}``, the empirical ``+IC``), and protein matrix mixtures
+    (LG4M/LG4X); binary and genotype models raise rather than running the
+    plain paths there (the JAX package runs them on its XLA twin, never on
+    a Pallas kernel)."""
     if device.type != "cuda":
         return
-    what = None
-    if model.num_states != 4:
-        what = f"{model.num_states}-state models"
-    elif model.submodels is not None:
-        what = "matrix-mixture models"
-    if what is not None:
+    if model.num_states not in blo_kernel.K_STATES:
         raise NotImplementedError(
-            f"{what} are not yet ported to the GPU in epa_ng_tpu_torch "
+            f"{model.num_states}-state models are not yet ported to the GPU "
+            "in epa_ng_tpu_torch "
             "(run them with --device cpu, or with the JAX package)")
 
 

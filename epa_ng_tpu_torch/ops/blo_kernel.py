@@ -8,12 +8,17 @@ iteration-counting K5 (``_blo_kernel_counted``) — become ONE CUDA kernel,
 ``csrc/blo_newton.cu``, that reads each (query, edge) pair's own site
 window out of the full site-last stores by edge and query id. +I is a
 template flag (built as a second library), the counters an optional
-output. Its interface is :data:`blo_newton`:
+output. It is instantiated for DNA (K = 4) and protein (K = 20), and at
+K = 20 for matrix mixtures (LG4M/LG4X: per-rate coefficient tables and a
+per-category query tip), as ``_blo_compute`` is. Its interface is
+:data:`blo_newton`:
 
-    tU, tV [E, RK, S], tQ [Q, K, S]      full stores (f32, contiguous)
+    tU, tV [E, RK, S], tQ [Q, Kq, S]     full stores (f32, contiguous);
+                                         Kq = K, or RK for a mixture
     e_ids, q_ids, begins, spans [P]      per-pair rows and site windows
     orig_len, skip [P]                   edge lengths, dead-lane flags
     _kernel_scalars tables               x_rk [RK], wA [RK,K], A, piA [K,K]
+                                         (a mixture's A, piA [RK,K])
     invq [Q, S], ls [E, S], omp          +I only: the invariant term
                                          exp(invq[q] - ls[e]), 1 - pinv
     -> logl (scaled space), pendant, distal, proximal, done   each [P]
@@ -60,19 +65,18 @@ from epa_ng_tpu_torch.ops.newton import (BRLEN_DEFAULT, BRLEN_MAX, BRLEN_MIN,
                                          GAIN_EPSILON, MAX_ITERS,
                                          OPT_BRANCH_EPSILON, SMOOTHINGS)
 
-K_STATES = 4      # the kernel is instantiated for DNA
-MAX_RATES = 8     # rate-category instantiations in csrc/blo_newton.cu
-PB = 128          # pair-padding granule of the engine's control flow
+K_STATES = (4, 20)  # DNA and protein instantiations of the kernel
+MAX_RATES = 8       # rate categories the kernel takes (csrc/blo_newton.cu)
+PB = 128            # pair-padding granule of the engine's control flow
 # The per-pair sumtable T ([RK, width] f32 per warp) lives in shared memory
 # up to 96 KB, which keeps at least two pairs resident per H100 SM (227 KB
-# usable per block): 1536-site windows at RK = 16. Wider windows keep T in
-# a device-memory scratch of at most T_SCRATCH_BYTES, one slice per
-# resident warp, each warp looping over pairs.
+# usable per block): 1536-site windows at RK = 16, 288 at RK = 80. Wider
+# windows keep T in a device-memory scratch of at most T_SCRATCH_BYTES,
+# one slice per resident warp, each warp looping over pairs.
 MAX_RK_SITES = 24576
 MAX_SHARED_SITES = 1536
 SMEM_PER_BLOCK = 227 * 1024
 T_SCRATCH_BYTES = 256 << 20
-_TAB_BYTES = 192 * 4  # scalar tables at the head of shared memory (.cu)
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "blo_newton.cu")
@@ -80,11 +84,38 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
 
 
-def max_shared_sites(rk: int, has_pinv: bool = False) -> int:
+def _tab_bytes(k: int, r: int, mixture: bool = False) -> int:
+    """Bytes of the scalar tables at the head of the kernel's shared memory,
+    as csrc/blo_newton.cu lays them out: 192 floats for every DNA
+    instantiation; at K = 20 x_rk, wA and A, piA ([K, K], or [RK, K] for a
+    mixture), rounded up to 32 floats (``wide_tab_floats``)."""
+    if k == 4:
+        return 192 * 4
+    rk = r * k
+    floats = rk + rk * k + (2 * rk * k if mixture else 2 * k * k)
+    return -(-floats // 32) * 32 * 4
+
+
+def _exp_bytes(k: int, rk: int) -> int:
+    """Shared memory per warp for the exponential rows e^{x t} (two rows of
+    RK floats) that the K = 20 instantiations keep there rather than in
+    registers; the DNA ones keep theirs in registers."""
+    return 0 if k == 4 else 2 * rk * 4
+
+
+def max_shared_sites(rk: int, has_pinv: bool = False, num_states: int = 4,
+                     mixture: bool = False) -> int:
     """Widest window whose sumtable the kernel keeps in shared memory; wider
     windows keep it in device memory. +I adds one row (pv) to the
-    sumtable: 1440 sites at RK = 16."""
-    return min(MAX_SHARED_SITES, MAX_RK_SITES // (rk + has_pinv) // 32 * 32)
+    sumtable: 1440 sites at RK = 16. Two pairs and the scalar tables of
+    the instantiation must fit one block: 288 sites at RK = 80, single
+    matrix or mixture."""
+    rows = rk + has_pinv
+    k = num_states
+    two = ((SMEM_PER_BLOCK - _tab_bytes(k, rk // k, mixture)
+            - 2 * _exp_bytes(k, rk)) // (2 * 4 * rows))
+    return min(MAX_SHARED_SITES, MAX_RK_SITES // rows // 32 * 32,
+               two // 32 * 32)
 
 
 def kernel_width(spans) -> int:
@@ -96,14 +127,16 @@ def kernel_width(spans) -> int:
 
 def blo_unsupported(consts, sliding: bool = True):
     """Why the CUDA kernel cannot take this model, or None: it takes DNA
-    (K = 4) with one substitution matrix, 1..MAX_RATES rate categories,
-    with or without +I, f32 and sliding BLO, at any window width."""
+    (K = 4) and protein (K = 20) with one substitution matrix, and
+    protein matrix mixtures (LG4M/LG4X), with 1..MAX_RATES rate
+    categories, with or without +I (the engine takes no +I with a
+    mixture), f32 and sliding BLO, at any window width."""
     k = int(consts.A.shape[-1])
     r = int(consts.rates.shape[0])
     if not sliding:
         return "non-sliding (--raxml-blo) BLO"
-    if consts.A.ndim != 2 or k != K_STATES:
-        return f"{k}-state or mixture models"
+    if k not in K_STATES:
+        return f"{k}-state models"
     if r > MAX_RATES:
         return f"{r} rate categories (the kernel takes 1..{MAX_RATES})"
     if consts.A.dtype != torch.float32:
@@ -115,7 +148,8 @@ def _kernel_scalars(consts, dtype):
     """Scalar tables: exponent lanes x_rk [RK], weighted back-transform
     wA [RK, K] (w_r * A[i,k] rows [r*K+i, k]), plain A [K, K], and piA
     [K, K] (pi_i * A[i,k]) — the factorisation of
-    G[k1,k2,k3] = sum_i pi_i A_ik1 A_ik2 A_ik3."""
+    G[k1,k2,k3] = sum_i pi_i A_ik1 A_ik2 A_ik3. A matrix mixture's A and
+    piA are per-rate rows [RK, K]."""
     scale = 1.0 / (1.0 - consts.pinv)   # libpll's +I time scaling
     K = consts.A.shape[-1]
     R = consts.rates.shape[0]
@@ -179,7 +213,13 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     """Plain batched-torch version of the kernel (``_blo_compute``'s
     arithmetic, pairs in lock step with per-pair freezing; a pair's result
     never depends on another's). Same inputs and outputs as
-    :data:`blo_newton`: with ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
+    :data:`blo_newton`, for K = 4 and K = 20, a single matrix or a matrix
+    mixture: ``A``/``piA`` of [K, K] or per-rate [RK, K] rows, a query tip
+    ``tQ`` of K or RK (per-category) rows. Sums run in the kernel's
+    orders: back-transform over k, contraction over i, f0/f1/f2 and the
+    score over j, and over a window's sites lane by lane, then a warp's
+    xor butterfly (``site_sum``); so on a borderline pair both take the
+    same Newton stops. With ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
     (1 - pinv) the +I term joins every site likelihood,
     g = omp * f + exp(invq[q] - ls[e]), in the kernel's order of
     operations. With ``counters``, also returns per-pair executed
@@ -201,13 +241,36 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     dist_min = torch.clamp(half, max=BRLEN_MIN / 2.0)
     dist_tol = dist_min / 10.0
     dist_max = orig - dist_tol
-    wA_r = wA.reshape(R, K, K)
-    A_r = A[None].expand(R, K, K)
+    # coefficient tables per rate [R, K(i), K(k)]: a matrix mixture's A and
+    # piA arrive as per-rate [RK, K] rows, a single matrix's as one [K, K]
+    per_rate = lambda t: (t.reshape(R, K, K) if t.shape[0] == RK
+                          else t[None].expand(R, K, K))
+    wA_r, A_r, piA_r = per_rate(wA), per_rate(A), per_rate(piA)
     n_smooth = torch.zeros(P, dtype=torch.int64, device=tU.device)
     n_iter = torch.zeros(P, dtype=torch.int64, device=tU.device)
 
     def exps(t):                                             # [n] -> [n, RK]
         return torch.exp(x_rk[None, :] * t[:, None])
+
+    def site_sum(x):                                         # [n, W] -> [n]
+        """The kernel's order over a window's sites: lane l of a warp sums
+        sites l, l+32, ... in turn, then an xor butterfly over the 32 lane
+        sums (warp_sum), which ends with the same float in every lane."""
+        n = x.shape[0]
+        x = torch.nn.functional.pad(x, (0, -W % 32)).reshape(n, -1, 32)
+        acc = x[:, 0]
+        for c in range(1, x.shape[1]):
+            acc = acc + x[:, c]
+        lane = torch.arange(32, device=x.device)
+        for m in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lane ^ m]
+        return acc[:, 0]
+
+    def tip_rk(t):
+        """The query tip over all RK lanes: a mixture's is per category
+        already ([n, RK, W]); a single matrix's [n, K, W] serves every
+        rate (``tQ_ref[j % Kq]``)."""
+        return t if t.shape[1] == RK else t.repeat(1, R, 1)
 
     def back_transform(X, E, coef):
         """h[r, i] = sum_k coef[r, i, k] * X[r*K+k] * E[r*K+k]."""
@@ -221,13 +284,13 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         return h                                             # [n, R, K, W]
 
     def contract_T(hA, hB, out=None):
-        """T[r*K+k] = sum_i piA[i,k] hA[r,i] hB[r,i] (* out[k])."""
+        """T[r*K+k] = sum_i piA[r, i, k] hA[r,i] hB[r,i] (* out[r*K+k])."""
         prod = hA * hB
-        T = piA[0][None, None, :, None] * prod[:, :, 0:1, :]
+        T = piA_r[None, :, 0, :, None] * prod[:, :, 0:1, :]
         for i in range(1, K):
-            T = T + piA[i][None, None, :, None] * prod[:, :, i:i + 1, :]
+            T = T + piA_r[None, :, i, :, None] * prod[:, :, i:i + 1, :]
         if out is not None:
-            T = T * out[:, None, :, :]
+            T = T * tip_rk(out).reshape(T.shape)
         return T.reshape(T.shape[0], RK, W)
 
     def build_T(tu_, tv_, tq_, lp, ld):
@@ -243,7 +306,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         for j in range(1, RK):
             f = f + (T[:, j] if zero_lane[j] else T[:, j] * E[:, j, None])
         g = torch.clamp(site_g(f, pv_), min=tiny)
-        return torch.sum(m * torch.log(g), dim=-1)
+        return site_sum(m * torch.log(g))
 
     def newton(T, m, pv_, xmin, xmax, xtol, guess):
         x = torch.minimum(torch.maximum(guess, xmin), xmax)
@@ -273,8 +336,8 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                 f1 = omp * f1
                 f2 = omp * f2
             r1 = f1 * inv_g
-            d1 = torch.sum(m * r1, dim=-1)
-            d2 = torch.sum(m * (f2 * inv_g - r1 * r1), dim=-1)
+            d1 = site_sum(m * r1)
+            d2 = site_sum(m * (f2 * inv_g - r1 * r1))
             newton_x = x - d1 / torch.where(d2 == 0, one, d2)
             dirn = torch.where(d1 > 0, one, -one)
             snap = (d2 >= 0) & (slid * dirn > 0)
@@ -319,7 +382,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                             full(BRLEN_MAX), full(BRLEN_MIN / 10.0), guess)
         # --- distal Newton on the role-swapped T2
         T2 = contract_T(back_transform(tu_a, exps(pr_a), wA_r),
-                        back_transform(tq_a.repeat(1, R, 1), exps(new_p),
+                        back_transform(tip_rk(tq_a), exps(new_p),
                                        A_r)) * tv_a
         guess2 = torch.where((d_a < dmin) | (d_a > dmax), h_a, d_a)
         new_d, it2 = newton(T2, m_a, pv_a, dmin, dmax, dtol, guess2)
@@ -345,14 +408,15 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
 
 
 def blo_op_count(spans, smoothings, newton_iters, num_rates: int,
-                 has_pinv: bool = False) -> float:
+                 has_pinv: bool = False, num_states: int = 4) -> float:
     """Floating-point operations the kernel needs for these pairs, counted
     from ``csrc/blo_newton.cu`` (an FMA counts 2; exp, log, max and a
     division count 1 each):
 
-    - sumtable build, per site and rate: 6 exp-scalings, two K x K
-      back-transforms (2 x 28), the piA contraction (4 products + 4 x
-      (1 mul + 3 FMA)) and 4 output products -> 98;
+    - sumtable build, per site and rate: 2(K-1) exp-scalings, two K x K
+      back-transforms (2 x K x (1 mul + (K-1) FMA)), the piA contraction
+      (K products + K x (1 mul + (K-1) FMA)) and K output products
+      -> 6K^2 + K - 2 (98 at K = 4, 2418 at K = 20);
     - Newton iteration, per site: per non-zero lane 1 mul + 1 add + 2 FMA
       (6), per zero lane 1 add, then max, div, mul, add, 2 mul, sub (8);
     - score, per site: per non-zero lane an FMA (2), per zero lane 1 add,
@@ -361,13 +425,14 @@ def blo_op_count(spans, smoothings, newton_iters, num_rates: int,
       iteration omp * f0 + pv, omp * f1, omp * f2 (4), per score
       omp * f + pv (2).
 
-    One build and one score start each pair; each smoothing adds two builds
-    (T2, then T at the new lengths) and one score. ``smoothings`` and
-    ``newton_iters`` are per-pair executed counts (the kernel's counters,
-    or :func:`blo_newton_plain`'s)."""
-    R = num_rates
-    RK = 4 * R
-    build = 98 * R
+    A matrix mixture's per-rate tables change which coefficients are read,
+    not how many operations run. One build and one score start each pair;
+    each smoothing adds two builds (T2, then T at the new lengths) and one
+    score. ``smoothings`` and ``newton_iters`` are per-pair executed
+    counts (the kernel's counters, or :func:`blo_newton_plain`'s)."""
+    R, K = num_rates, num_states
+    RK = K * R
+    build = (6 * K * K + K - 2) * R
     newton_site = 6 * (RK - R) + R + 8 + 4 * has_pinv
     score_site = 2 * (RK - R) + R + 3 + 2 * has_pinv
     spans = np.asarray(spans, np.float64)
@@ -379,14 +444,17 @@ def blo_op_count(spans, smoothings, newton_iters, num_rates: int,
 
 
 def blo_byte_count(spans, num_rates: int, has_pinv: bool = False,
-                   counters: bool = False) -> float:
+                   counters: bool = False, num_states: int = 4,
+                   mixture: bool = False) -> float:
     """Bytes the kernel must move for these pairs: each pair's windows of
-    tU, tV (RK floats per site each) and tQ (K), plus invq and ls with +I
-    (8 B per site), read once; per pair its ids, window and scalars
-    (24 B) and its five outputs (20 B), plus 8 B of counters."""
-    RK = 4 * num_rates
+    tU, tV (RK floats per site each) and tQ (K, or RK for a mixture's
+    per-category tip), plus invq and ls with +I (8 B per site), read once;
+    per pair its ids, window and scalars (24 B) and its five outputs
+    (20 B), plus 8 B of counters."""
+    RK = num_states * num_rates
+    kq = RK if mixture else num_states
     spans = np.asarray(spans, np.float64)
-    per_site = (2 * RK + 4) * 4 + 8 * has_pinv
+    per_site = (2 * RK + kq) * 4 + 8 * has_pinv
     per_pair = 24 + 20 + 8 * counters
     return float(spans.sum() * per_site + len(spans) * per_pair)
 
@@ -398,33 +466,38 @@ def blo_byte_count(spans, num_rates: int, has_pinv: bool = False,
 class _BloNewton:
     """The CUDA kernel behind a callable. Launch counts (never plain-version
     calls): ``launches`` all launches, ``pinv_launches`` those with the +I
-    term (K2/K4), ``counted_launches`` those with the K5 counters on. The
-    two shared libraries (without and with +I) are built with nvcc at
-    first use into ``epa_ng_tpu_torch/build/``; :meth:`build_all` builds
-    both at once. ``fmad`` turns on nvcc's mul+add contraction (FMA); it is
-    off, so the kernel rounds as its plain version does
-    (csrc/blo_newton.cu), and only the FMA timing of ``chip_smoke.py
-    --fmad-ab`` turns it on."""
+    term (K2/K4), ``counted_launches`` those with the K5 counters on, and
+    one count per instantiation family: ``k4_launches`` (DNA),
+    ``k20_launches`` (protein, one matrix) and ``mixture_launches``
+    (protein matrix mixtures). The two shared libraries (without and with
+    +I) are built with nvcc at first use into ``epa_ng_tpu_torch/build/``;
+    :meth:`build_all` builds both at once. ``fmad`` turns on nvcc's
+    mul+add contraction (FMA); it is off, so the kernel rounds as its
+    plain version does (csrc/blo_newton.cu), and only the FMA timing of
+    ``chip_smoke.py --fmad-ab`` turns it on."""
+
+    _COUNTS = ("launches", "pinv_launches", "counted_launches",
+               "k4_launches", "k20_launches", "mixture_launches")
 
     def __init__(self, fmad: bool = False):
-        self.launches = 0
-        self.pinv_launches = 0
-        self.counted_launches = 0
+        self._counts = dict.fromkeys(self._COUNTS, 0)
         self.build_logs = {False: "", True: ""}
         self.fmad = fmad
         self._libs = {}
         self._locks = {False: threading.Lock(), True: threading.Lock()}
         self._count_lock = threading.Lock()
 
+    @property
+    def launches(self) -> int:
+        return self._counts["launches"]
+
     def reset_counts(self):
         with self._count_lock:
-            self.launches = self.pinv_launches = self.counted_launches = 0
+            self._counts = dict.fromkeys(self._COUNTS, 0)
 
     def counts(self) -> dict:
         with self._count_lock:
-            return dict(launches=self.launches,
-                        pinv_launches=self.pinv_launches,
-                        counted_launches=self.counted_launches)
+            return dict(self._counts)
 
     def build(self, has_pinv: bool = False):
         """Compile csrc/blo_newton.cu for one flavour (if stale) and load
@@ -459,7 +532,7 @@ class _BloNewton:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.blo_newton_launch.restype = i32
             lib.blo_newton_launch.argtypes = (
-                [ptr, ptr, ptr, i32, i32] + [ptr] * 3 + [ptr] * 6
+                [ptr] * 3 + [i32] * 4 + [ptr] * 3 + [ptr] * 6
                 + [ptr] * 4 + [i32] * 5 + [ptr] + [ptr] * 7 + [ptr])
             lib.blo_newton_error_string.restype = ctypes.c_char_p
             lib.blo_newton_error_string.argtypes = [i32]
@@ -489,14 +562,27 @@ class _BloNewton:
         x_rk, wA, A, piA = tables
         dev = tU.device
         RK, S = tU.shape[1], tU.shape[2]
-        K = tQ.shape[1]
+        K = int(A.shape[-1])
+        R = RK // K
+        # a mixture's per-rate A/piA rows; with one rate they are the
+        # single-matrix tables
+        mixture = A.shape[0] == RK and R > 1
         P = e_ids.shape[0]
         has_pinv = invq is not None
-        if tU.dtype != torch.float32 or K != K_STATES or RK % K:
-            raise ValueError("blo_newton takes f32 DNA (K = 4) stores")
-        if tV.shape != tU.shape or tQ.shape[2] != S or tQ.dim() != 3:
-            raise ValueError("blo_newton: tU/tV [E,RK,S] and tQ [Q,K,S]")
-        if RK // K > MAX_RATES or width < 1:
+        if tU.dtype != torch.float32 or K not in K_STATES or RK % K:
+            raise ValueError("blo_newton takes f32 stores of 4 or 20 states")
+        if (tV.shape != tU.shape or tQ.dim() != 3 or tQ.shape[2] != S
+                or tQ.shape[1] != (RK if mixture else K)):
+            raise ValueError("blo_newton: tU/tV [E,RK,S] and tQ [Q,K,S] "
+                             "([Q,RK,S] for a matrix mixture)")
+        if (x_rk.shape != (RK,) or wA.shape != (RK, K)
+                or A.shape not in ((K, K), (RK, K)) or piA.shape != A.shape):
+            raise ValueError("blo_newton: tables x_rk [RK], wA [RK,K] and "
+                             "A, piA [K,K] (a mixture's [RK,K])")
+        if mixture and (K != 20 or has_pinv):
+            raise ValueError("blo_newton: matrix mixtures take 20 states "
+                             "and no +I")
+        if R > MAX_RATES or width < 1:
             raise ValueError(f"blo_newton: unsupported RK={RK} or "
                              f"width={width}")
         if has_pinv and (ls is None or omp is None
@@ -526,9 +612,10 @@ class _BloNewton:
                    for _ in range(2)] if counters else [])
         rows = RK + has_pinv
         per_pair = rows * width * 4
-        if width <= max_shared_sites(RK, has_pinv):
+        if width <= max_shared_sites(RK, has_pinv, K, mixture):
             # T in shared memory; one warp per pair
-            ppb = max(1, min(4, (SMEM_PER_BLOCK - _TAB_BYTES) // per_pair))
+            ppb = max(1, min(4, (SMEM_PER_BLOCK - _tab_bytes(K, R, mixture))
+                             // (per_pair + _exp_bytes(K, RK))))
             blocks = -(-P // ppb)
             scratch = None
         else:
@@ -543,18 +630,20 @@ class _BloNewton:
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib.blo_newton_launch(
-                tU_c.data_ptr(), tV_c.data_ptr(), tQ_c.data_ptr(), S,
-                RK // K, *(ptrs(pinv_args) or [None] * 3), *ptrs(args_i),
-                *ptrs(args_f), P, width, max_smoothings, ppb, blocks,
-                None if scratch is None else scratch.data_ptr(),
+                tU_c.data_ptr(), tV_c.data_ptr(), tQ_c.data_ptr(), S, K, R,
+                int(mixture), *(ptrs(pinv_args) or [None] * 3),
+                *ptrs(args_i), *ptrs(args_f), P, width, max_smoothings, ppb,
+                blocks, None if scratch is None else scratch.data_ptr(),
                 *ptrs(outs), *(ptrs(counts) or [None] * 2), stream)
         if rc != 0:
             msg = lib.blo_newton_error_string(rc).decode()
             raise RuntimeError(f"blo_newton launch failed: {msg} ({rc})")
+        family = ("mixture_launches" if mixture
+                  else "k4_launches" if K == 4 else "k20_launches")
         with self._count_lock:
-            self.launches += 1
-            self.pinv_launches += has_pinv
-            self.counted_launches += counters
+            for key, on in (("launches", True), ("pinv_launches", has_pinv),
+                            ("counted_launches", counters), (family, True)):
+                self._counts[key] += on
         return tuple(outs + counts)
 
 
@@ -603,7 +692,8 @@ def blo_optimize_batch_kernel_blocked(consts, tU, tV, tQ, e_ids, q_ids,
     """Counterpart of ``blo_optimize_batch_pallas_blocked`` (K1; with +I,
     K2).
 
-    tU, tV: [E, RK, S] and tQ [Q, K, S] full stores; e_ids, q_ids [NP]
+    tU, tV: [E, RK, S] and tQ [Q, K, S] ([Q, RK, S] for a matrix
+    mixture) full stores; e_ids, q_ids [NP]
     rows of each pair; begins, spans [NP] each pair's site window (absolute
     sites, span <= ``block_width``, the sumtable width: see
     :func:`kernel_width`); orig_len [NP]; ls_sum [NP] per-pair
@@ -654,7 +744,8 @@ def blo_optimize_batch_kernel(consts, tU, tV, tQ, ls, site_mask, orig_len,
                               has_pinv: bool = False,
                               counters: bool = False):
     """Counterpart of ``blo_optimize_batch_pallas`` (sliding mode; K3, with
-    +I K4): tU, tV [B, RK, W] pre-sliced windows; tQ [B, K, W]; ls,
+    +I K4): tU, tV [B, RK, W] pre-sliced windows; tQ [B, K, W] ([B, RK,
+    W] for a matrix mixture); ls,
     site_mask [B, W]; orig_len [B]. Every caller's site mask is one
     contiguous run per pair, which becomes that pair's (begin, span)
     window. With ``has_pinv`` (+I models) ``inv_logfreq`` [B, W] and ``ls``

@@ -2,8 +2,10 @@
 ``parallel/mesh.py``): preplace -> top-k select -> batched Newton -> LWR ->
 on-device output filter, one call per query chunk.
 
-On the card the Newton stage runs the CUDA kernel (``use_kernel``, DNA f32
-sliding mode with or without +I, through :func:`_newton_blocked_kernel`);
+On the card the Newton stage runs the CUDA kernel (``use_kernel``: f32
+sliding mode, DNA or protein, with or without +I, and protein matrix
+mixtures, whose query tips ``tQ`` carry RK per-category rows, through
+:func:`_newton_blocked_kernel`);
 f64, ``--pallas off`` and everything else take the torch Newton twin
 (ops.newton). The sharded multi-device step (``ShardedPlacement``,
 ``_spmd_step_body``, ``make_mesh``) is not ported yet; it extends this
@@ -104,7 +106,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
     table: [E,C,S] preplacement lookup; tU, tV: [E,RK,S] eigen-transformed
     edge CLVs with combined log-scale ls: [E,S] (newton.transform_edges);
     codes: [Q,S]; tQ: [Q,K,S] eigen-transformed query tips
-    (newton.transform_queries); invq: [Q,S] p-inv log term. Returns per
+    (newton.transform_queries; [Q,RK,S] for a matrix mixture); invq:
+    [Q,S] p-inv log term. Returns per
     query the top-k candidate (edges, logl, lwr, pendant, distal,
     valid-mask, computed-mask), all [Q,topk].
 

@@ -288,17 +288,45 @@ def test_plain_counters_match_pallas_count_iters(f32_state):
         assert trips[b] >= iters[blk].max()
 
 
-def test_kernel_scalars_match(f32_state):
-    st = f32_state
-    ref = jpb._kernel_scalars(st["eng"].consts, jnp.float32)
-    got = bk._kernel_scalars(st["tconsts"], torch.float32)
+@pytest.fixture(scope="module")
+def model_consts(f32_state):
+    """(JAX consts, port consts) in f32 of the GTR+G4 state, LG+G4 and a
+    four-component LG-derived matrix mixture (per-rate eigen systems)."""
+    from epa_ng_tpu.models import aa_matrices
+    from epa_ng_tpu.ops import eigen as jeigen
+    from epa_ng_tpu.ops import newton as jnewton
+    from test_torch_blo_kernel_aa import mixture_components
+    out = {"GTR": (f32_state["eng"].consts, f32_state["tconsts"])}
+    aa_matrices.MIXTURES["TESTSCALARMIX"] = (mixture_components(4), "gamma")
+    try:
+        for name, model in (("LG", "LG+G4{0.8}"),
+                            ("mixture", "TESTSCALARMIX+G4{0.9}")):
+            jc = jnewton.eig_consts(
+                jeigen.decompose(Model.from_string(model)), jnp.float32)
+            out[name] = (jc, tnewton.EigConsts(*[T(x) for x in jc]))
+    finally:
+        aa_matrices.MIXTURES.pop("TESTSCALARMIX", None)
+    return out
+
+
+@pytest.mark.parametrize("model", ["GTR", "LG", "mixture"])
+def test_kernel_scalars_match(model_consts, model):
+    jc, tc = model_consts[model]
+    ref = jpb._kernel_scalars(jc, jnp.float32)
+    got = bk._kernel_scalars(tc, torch.float32)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0])[:, 0])
     for r, g in zip(ref[1:], got[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(r))
+    # a mixture's A and piA are per-rate rows [RK, K]
+    K, RK = 4 if model == "GTR" else 20, got[0].shape[0]
+    assert got[2].shape == ((RK, K) if model == "mixture" else (K, K))
 
 
-def test_blo_supported_and_op_count(f32_state):
-    c = f32_state["tconsts"]
+@pytest.mark.parametrize("model", ["GTR", "LG", "mixture"])
+def test_blo_supported_and_op_count(model_consts, model):
+    c = model_consts[model][1]
+    K = int(c.A.shape[-1])
+    mix = c.A.ndim == 3
     assert bk.blo_unsupported(c) is None     # at any window width
     assert "sliding" in bk.blo_unsupported(c, sliding=False)
     c64 = tnewton.EigConsts(*[x.double() for x in c])
@@ -311,14 +339,36 @@ def test_blo_supported_and_op_count(f32_state):
     # +I adds one sumtable row: 17 rows of 1440 sites stay within 96 KB
     assert bk.max_shared_sites(16, has_pinv=True) == 1440
     assert 17 * 1440 * 4 <= bk.MAX_RK_SITES * 4
+    # RK = 80: 288 sites; two pairs, the scalar tables and the exponential
+    # rows fit one block, single matrix or mixture, with or without +I
+    assert bk.max_shared_sites(80, False, 20, mix) == 288
+    assert bk.max_shared_sites(80, True, 20) == 288
+    for R in range(1, bk.MAX_RATES + 1):
+        rows, w = 20 * R, bk.max_shared_sites(20 * R, False, 20, True)
+        assert (bk._tab_bytes(20, R, True) + 2 * bk._exp_bytes(20, rows)
+                + 2 * rows * w * 4) <= bk.SMEM_PER_BLOCK
+    # the tables' sizes as csrc/blo_newton.cu lays them out
+    assert bk._tab_bytes(4, 8) == 192 * 4
+    assert bk._tab_bytes(20, 4) == -(-(80 + 1600 + 800) // 32) * 32 * 4
+    assert bk._tab_bytes(20, 4, True) == -(-(80 + 3 * 1600) // 32) * 32 * 4
     assert bk.kernel_width(np.array([1, 200, 33])) == 224
     assert bk.kernel_width(np.array([2000])) == 2016
     # operation count grows with the executed work, and with +I
-    a = bk.blo_op_count([100], [2], [10], 4)
-    b = bk.blo_op_count([100], [3], [20], 4)
+    a = bk.blo_op_count([100], [2], [10], 4, num_states=K)
+    b = bk.blo_op_count([100], [3], [20], 4, num_states=K)
     assert 0 < a < b
-    assert bk.blo_op_count([100], [2], [10], 4, has_pinv=True) == (
-        a + 100 * (2 + 10 * 4 + 3 * 2))
-    # bytes: windows read once (+8 B per site with +I), ids and outputs
+    assert bk.blo_op_count([100], [2], [10], 4, has_pinv=True,
+                           num_states=K) == a + 100 * (2 + 10 * 4 + 3 * 2)
+    # a build per site and rate: 6 K^2 + K - 2 operations (98 at K = 4)
+    build = (6 * K * K + K - 2) * 4
+    newton_site = 6 * (4 * K - 4) + 4 + 8
+    score_site = 2 * (4 * K - 4) + 4 + 3
+    assert a == 100 * (5 * build + 3 * score_site + 10 * newton_site)
+    # bytes: windows read once (+8 B per site with +I), ids and outputs;
+    # a mixture's tip has RK rows
+    RK = 4 * K
+    kq = RK if mix else K
+    assert bk.blo_byte_count([100], 4, num_states=K, mixture=mix) == (
+        100 * (2 * RK + kq) * 4 + 44)
     assert bk.blo_byte_count([100], 4) == 100 * 144 + 44
     assert bk.blo_byte_count([100], 4, True, True) == 100 * 152 + 52

@@ -18,7 +18,7 @@ from epa_ng_tpu_torch.models import Model
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from epa_ng_tpu_torch.ops import newton as tnewton
 from epa_ng_tpu_torch.utils.options import Options
-from epa_ng_tpu_torch.utils.synth import evolved_dataset, synth_dataset
+from epa_ng_tpu_torch.utils.synth import AA, evolved_dataset, synth_dataset
 
 GTR = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
 
@@ -30,9 +30,13 @@ def _card():
 
 
 def _state(dev, n_pairs, seed, model=GTR, n_taxa=24, data_seed=9,
-           with_invq=False):
+           with_invq=False, alphabet="ACGT", invariant=0.0):
     tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=200, n_queries=16,
-                                   seed=data_seed)
+                                   seed=data_seed, alphabet=alphabet)
+    if invariant:
+        from chip_smoke import lg_freqs, with_invariant_sites
+        ref, qry, _ = with_invariant_sites(ref, qry, lg_freqs(), invariant,
+                                           data_seed, alphabet)
     eng = PlacementEngine(tree, ref, Model.from_string(model),
                           Options(compute_dtype="f32"), device=dev)
     ec = eng.encode_msa(qry)
@@ -290,6 +294,110 @@ def test_engine_pinv_takes_the_kernel(monkeypatch):
     work = eng.newton_work.totals()
     assert work["newton_pairs"] > 0
     assert work["newton_iters"] >= 2 * work["newton_smoothings"]
+
+    assert [p.seq_id for p in got] == [p.seq_id for p in want]
+    close, agree = [], []
+    for x, y in zip(want, got):
+        close.append(abs(y.logls[0] - x.logls[0]) <= 1e-5 * abs(x.logls[0]))
+        ll = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
+        agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
+                     >= x.logls[0] - 1e-5 * abs(x.logls[0]))
+    assert np.mean(close) >= 0.9 and np.mean(agree) >= 0.9
+
+
+AA_CASES = {"lg": "LG+G4{0.8}", "lg_pinv": "LG+I{0.25}+G4{0.8}",
+            "mixture": "SMOKEMIX4M+G4{0.9}"}
+
+
+@pytest.fixture()
+def mixture_registered():
+    """chip_smoke's four-component LG-derived mixture in the port's table."""
+    from chip_smoke import MIXTURE, register_mixture
+    from epa_ng_tpu_torch.models import aa_matrices
+    register_mixture()
+    yield
+    aa_matrices.MIXTURES.pop(MIXTURE, None)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(AA_CASES))
+@pytest.mark.parametrize("home", ["shared", "device"])
+def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
+    """The K = 20 instantiations (protein with one matrix, with +I on data
+    with 20% invariant columns, and a matrix mixture: per-rate tables, a
+    per-category tip) against their plain version on the card, the
+    sumtable in shared memory (width 256) and in device memory (past
+    max_shared_sites), with the counters; each launch counts in its
+    family."""
+    dev = _card()
+    pinv = case == "lg_pinv"
+    eng, tQ, pe, pq, pb, sp, invq = _state(
+        dev, 512, seed=10, model=AA_CASES[case], n_taxa=16, data_seed=21,
+        with_invq=True, alphabet=AA, invariant=0.2 if pinv else 0.0)
+    blo = eng.blo
+    mix = case == "mixture"
+    RK = blo.tU.shape[1]
+    assert RK == 80 and tQ.shape[1] == (80 if mix else 20)
+    width = (256 if home == "shared"
+             else bk.max_shared_sites(RK, pinv, 20, mix) + 64)
+    args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+            torch.zeros(len(pe), device=dev))
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    kw = {}
+    if pinv:
+        assert torch.isfinite(invq).any()
+        kw = dict(invq=invq, ls=blo.ls,
+                  omp=bk._omp(eng.consts, torch.float32))
+    family = "mixture_launches" if mix else "k20_launches"
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, width, counters=True, **kw)
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    assert after[family] == before[family] + 1
+    assert after["pinv_launches"] == before["pinv_launches"] + pinv
+    _assert_matches_plain(got, tables, args, width, **kw)
+    ref = bk.blo_newton_plain(tables, *args, width, counters=True, **kw)
+    for k, r in zip(got[5:], ref[5:]):
+        assert (k.long() == r).float().mean().item() >= 0.99
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["lg", "mixture"])
+def test_engine_aa_takes_the_kernel(monkeypatch, case, mixture_registered):
+    """Protein (evolved LG+G4 reads) and mixture (random reads) place
+    through the K = 20 kernel on the card, fused step and exact path, never
+    through the torch Newton or the kernel's plain version; the placements
+    agree with the port's f64 CPU engine (best logl within 1e-5 relative,
+    top edge up to ties) on >= 90% of queries."""
+    dev = _card()
+    model = AA_CASES[case]
+    if case == "lg":
+        tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=200,
+                                            n_queries=32, seed=3,
+                                            model_str=model, alphabet=AA)
+    else:
+        tree, ref, qry = synth_dataset(n_taxa=16, sites=160, n_queries=24,
+                                       seed=13, alphabet=AA)
+    cpu = PlacementEngine(tree, ref, Model.from_string(model), Options(),
+                          device="cpu")
+    want = cpu.place_chunk(qry) + cpu._place_chunk_exact(
+        cpu.encode_msa(qry), 0)
+
+    def no_twin(*a, **k):
+        raise AssertionError("the torch Newton ran on the card")
+
+    monkeypatch.setattr(tnewton, "blo_optimize_batch", no_twin)
+    monkeypatch.setattr(bk, "blo_newton_plain", no_twin)
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
+                          Options(compute_dtype="f32"), device=dev)
+    family = "mixture_launches" if case == "mixture" else "k20_launches"
+    before = bk.blo_newton.counts()
+    got = eng.place_chunk(qry)
+    got += eng._place_chunk_exact(eng.encode_msa(qry), 0)
+    after = bk.blo_newton.counts()
+    assert after[family] > before[family]
+    assert (after["launches"] - before["launches"]
+            == after[family] - before[family])
 
     assert [p.seq_id for p in got] == [p.seq_id for p in want]
     close, agree = [], []

@@ -95,6 +95,102 @@ def test_cli_parity_evolved(tmp_path, model, extra):
     assert_same_placements(a, b)
 
 
+@pytest.mark.parametrize("model", ["LG+G4{0.8}", "LG+I{0.2}+G4{0.8}"])
+def test_cli_parity_protein(tmp_path, model):
+    """Protein (K = 20) through both CLIs on LG-evolved reads; the +I model
+    on the same data with 20% of its columns made invariant, so its
+    invariant term bites."""
+    from chip_smoke import with_invariant_sites
+    from epa_ng_tpu.models import aa_matrices
+    from epa_ng_tpu.utils.synth import AA
+    tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=160, n_queries=48,
+                                        seed=5, model_str="LG+G4{0.8}",
+                                        alphabet=AA)
+    if "+I" in model:
+        ref, qry, _ = with_invariant_sites(
+            ref, qry, aa_matrices.MATRICES["LG"][1], 0.2, seed=5,
+            alphabet=AA)
+    tpath = str(tmp_path / "tree.nwk")
+    with open(tpath, "w") as f:
+        f.write(tree.plain_newick() + "\n")
+    rpath, qpath = str(tmp_path / "ref.fasta"), str(tmp_path / "q.fasta")
+    write_fasta(ref, rpath)
+    write_fasta(qry, qpath)
+    a, b = _run_both(tmp_path, tpath, rpath, qpath, model)
+    assert len(a) == 48
+    assert_same_placements(a, b)
+
+
+@pytest.fixture()
+def mixture_both():
+    """A four-component LG-derived matrix mixture registered in both
+    packages' tables (the port keeps its own copy)."""
+    from epa_ng_tpu.models import aa_matrices as jaa
+    from epa_ng_tpu_torch.models import aa_matrices as taa
+    from test_torch_blo_kernel_aa import mixture_components
+    comps = mixture_components(4)
+    for reg in (jaa, taa):
+        reg.MIXTURES["TESTENGMIX"] = (comps, "gamma")
+    yield "TESTENGMIX+G4{0.9}"
+    for reg in (jaa, taa):
+        reg.MIXTURES.pop("TESTENGMIX", None)
+
+
+def _port_msa(msa):
+    out = MSA()
+    for s in msa:
+        out.append(s.header, s.sequence)
+    return out
+
+
+def test_engine_parity_mixture(mixture_both):
+    """A matrix mixture placed by both engines on the same random protein
+    data, f64 on the CPU: the same edges, logl and lengths to 1e-6."""
+    from epa_ng_tpu.utils.synth import AA, synth_dataset
+    tree, ref, qry = synth_dataset(n_taxa=16, sites=96, n_queries=24,
+                                   seed=13, alphabet=AA)
+    jeng = JEngine(tree, ref, JModel.from_string(mixture_both), JOptions())
+    teng = PlacementEngine(Tree.from_string(tree.plain_newick()),
+                           _port_msa(ref), Model.from_string(mixture_both),
+                           Options(), device="cpu")
+    assert teng.consts.A.shape == (4, 20, 20)
+    assert teng.ref_tree_logl == pytest.approx(jeng.ref_tree_logl, rel=1e-10)
+    pa = jeng.place_chunk(qry)
+    pb = teng.place_chunk(_port_msa(qry))
+    assert len(pa) == len(pb) == 24
+    for x, y in zip(pa, pb):
+        np.testing.assert_array_equal(y.edge_nums, x.edge_nums)
+        np.testing.assert_allclose(y.logls, x.logls, rtol=1e-6)
+        np.testing.assert_allclose(y.pendant_lengths, x.pendant_lengths,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(y.distal_lengths, x.distal_lengths,
+                                   rtol=1e-6)
+
+
+def test_state_from_numpy_carries_a_mixture(mixture_both):
+    """The JAX engine's mixture state crosses to the port whole: per-rate
+    A/Ainv [R, K, K], eigenvalues and frequencies [R, K], and the BLO
+    store, whose kernel tables are then per-rate rows."""
+    from epa_ng_tpu.utils.synth import AA, synth_dataset
+    from epa_ng_tpu_torch.core.engine import state_from_numpy
+    from epa_ng_tpu_torch.ops import blo_kernel as bk
+    tree, ref, _ = synth_dataset(n_taxa=10, sites=48, n_queries=4, seed=3,
+                                 alphabet=AA)
+    jeng = JEngine(tree, ref, JModel.from_string(mixture_both), JOptions())
+    consts, blo, table = state_from_numpy(jeng.consts, jeng.blo,
+                                          jeng.lookup_table, device="cpu")
+    assert consts.A.shape == consts.Ainv.shape == (4, 20, 20)
+    assert consts.eigenvals.shape == consts.freqs.shape == (4, 20)
+    for name in consts._fields:
+        np.testing.assert_array_equal(getattr(consts, name).numpy(),
+                                      np.asarray(getattr(jeng.consts, name)))
+    assert blo.tU.shape[1] == 80 and table.dtype == torch.float64
+    x_rk, wA, A, piA = bk._kernel_scalars(consts, torch.float64)
+    assert A.shape == piA.shape == wA.shape == (80, 20)
+    np.testing.assert_array_equal(A.numpy(),
+                                  np.asarray(jeng.consts.A).reshape(80, 20))
+
+
 def test_from_precomputed_matches_jax_engine():
     """A port engine fed the JAX engine's edge tensors (numpy) places like
     the JAX engine."""
@@ -137,12 +233,15 @@ def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
 
 
 @pytest.mark.parametrize("model,refused", [
-    ("LG+G4", True), ("LG+I+G4", True), ("BIN+G4", True),
-    ("GTGTR4+G4", True), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False)])
-def test_cuda_refuses_unported_models(model, refused):
-    """On the card single-matrix DNA runs, with or without +I (fixed or
-    empirical p-inv); protein, binary and genotype models are refused. The
-    check needs no card (it refuses before any tensor is made)."""
+    ("LG+G4", False), ("LG+I+G4", False), ("BIN+G4", True),
+    ("GTGTR4+G4", True), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False),
+    ("LG+IC+G4", False), ("mixture", False)])
+def test_cuda_refuses_unported_models(model, refused, mixture_both):
+    """On the card DNA and protein run, single-matrix with or without +I
+    (fixed or empirical p-inv), and protein matrix mixtures; binary and
+    genotype models are refused. The check needs no card (it refuses
+    before any tensor is made)."""
+    model = mixture_both if model == "mixture" else model
     if refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             _check_device_model(torch.device("cuda"),
@@ -166,27 +265,37 @@ def test_pallas_on_needs_the_card():
         eng._use_kernel()
 
 
-@pytest.mark.parametrize("device,dtype,pallas,rates,sliding,expect", [
-    ("cuda", torch.float32, "auto", 4, True, True),
-    ("cuda", torch.float32, "on", 1, True, True),
-    ("cuda", torch.float32, "off", 4, True, False),
-    ("cuda", torch.float64, "auto", 4, True, False),
-    ("cpu", torch.float32, "auto", 4, True, False),
-    ("cuda", torch.float32, "auto", 9, True, NotImplementedError),
-    ("cuda", torch.float32, "auto", 4, False, NotImplementedError),
-    ("cpu", torch.float32, "on", 4, True, ValueError)])
-def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect):
+@pytest.mark.parametrize("device,dtype,pallas,rates,sliding,expect,states", [
+    ("cuda", torch.float32, "auto", 4, True, True, 4),
+    ("cuda", torch.float32, "on", 1, True, True, 4),
+    ("cuda", torch.float32, "off", 4, True, False, 4),
+    ("cuda", torch.float64, "auto", 4, True, False, 4),
+    ("cpu", torch.float32, "auto", 4, True, False, 4),
+    ("cuda", torch.float32, "auto", 9, True, NotImplementedError, 4),
+    ("cuda", torch.float32, "auto", 4, False, NotImplementedError, 4),
+    ("cpu", torch.float32, "on", 4, True, ValueError, 4),
+    ("cuda", torch.float32, "auto", 4, True, True, 20),
+    ("cuda", torch.float32, "auto", 4, True, True, "mixture"),
+    ("cuda", torch.float32, "auto", 9, True, NotImplementedError, 20),
+    ("cpu", torch.float32, "auto", 4, True, False, "mixture"),
+    ("cuda", torch.float32, "auto", 4, True, NotImplementedError, 2)])
+def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect,
+                             states):
     """On a cuda device in f32 the Newton stage takes the kernel at every
     window width, or raises "not yet ported"; only ``--pallas off``, f64 and
-    the CPU take the torch twin. The rule needs no card: it reads the
-    engine's device, dtype, options and eigen constants."""
+    the CPU take the torch twin. The kernel takes 4 and 20 states and
+    20-state matrix mixtures; 2 states raise. The rule needs no card: it
+    reads the engine's device, dtype, options and eigen constants."""
     from types import SimpleNamespace
 
     from epa_ng_tpu_torch.ops import newton as tnewton
+    K = 20 if states == "mixture" else states
+    lead = (rates,) if states == "mixture" else ()
     consts = tnewton.EigConsts(
-        eigenvals=torch.zeros(4, dtype=dtype),
-        A=torch.eye(4, dtype=dtype), Ainv=torch.eye(4, dtype=dtype),
-        freqs=torch.full((4,), 0.25),
+        eigenvals=torch.zeros(*lead, K, dtype=dtype),
+        A=torch.eye(K, dtype=dtype).expand(*lead, K, K),
+        Ainv=torch.eye(K, dtype=dtype).expand(*lead, K, K),
+        freqs=torch.full((*lead, K), 1.0 / K),
         rates=torch.ones(rates), weights=torch.ones(rates) / rates,
         pinv=0.0)
     eng = SimpleNamespace(
@@ -201,7 +310,7 @@ def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect):
 
 @pytest.mark.parametrize("data,topk,route", [
     ("evolved", 16, None), ("evolved", 10, "_redo_wide"),
-    ("random", 16, "_escalations")])
+    ("random", 16, "_escalations"), ("evolved LG+G4", 16, None)])
 def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
     """The engine's kernel routing (fused step, wide redo, escalation
     ladder, exact ``_thorough`` slabs) driven on CPU tensors, where the
@@ -211,8 +320,16 @@ def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
     posteriors and escalate the whole chunk. The two Newton forms round
     differently in f32, so the best logl agrees to 1e-5 relative and a top
     edge up to ties (the twin scores it within 1e-5 relative of its
-    best)."""
-    if data == "evolved":
+    best). ``evolved LG+G4`` runs the same routing at K = 20 on
+    LG-evolved reads."""
+    model = GTR
+    if data == "evolved LG+G4":
+        from epa_ng_tpu.utils.synth import AA
+        model = "LG+G4{0.8}"
+        tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=160,
+                                            n_queries=48, seed=3,
+                                            model_str=model, alphabet=AA)
+    elif data == "evolved":
         tree, ref, qry, _ = evolved_dataset(n_taxa=40, sites=160,
                                             n_queries=96, seed=3)
     else:
@@ -226,13 +343,13 @@ def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
     for s in qry:
         tq.append(s.header, s.sequence)
     opts = Options(compute_dtype="f32", chunk_size=96, fused_topk=topk)
-    twin = PlacementEngine(ttree, tref, Model.from_string(GTR), opts,
+    twin = PlacementEngine(ttree, tref, Model.from_string(model), opts,
                            device="cpu")
     ref_pq = twin.place_chunk(tq)
     ref_exact = twin._place_chunk_exact(twin.encode_msa(tq), 0)
 
     from epa_ng_tpu_torch.ops import blo_kernel
-    kern = PlacementEngine(ttree, tref, Model.from_string(GTR), opts,
+    kern = PlacementEngine(ttree, tref, Model.from_string(model), opts,
                            device="cpu")
     monkeypatch.setattr(kern, "_use_kernel", lambda: (
         blo_kernel.blo_unsupported(kern.consts) is None))
@@ -254,7 +371,7 @@ def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
             ll = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
             top = ll.get(int(y.edge_nums[0]), -np.inf)
             agree.append(top >= x.logls[0] - 1e-5 * abs(x.logls[0]))
-        if data == "evolved":
+        if data != "random":
             # random queries tie across more edges than filter_max keeps,
             # so their top edges are compared by logl only
             assert np.mean(agree) >= 0.99
