@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
    term is > 0;
 3c-3e. the same for the K = 20 instantiations: LG+G4{0.8} on the protein
    path's pairs, the four-component mixture on the mixture path's, and
-   LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns;
+   LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns, with
+   the sumtable in shared and in device memory, bit for bit (logl max abs
+   0.0, counters equal on every pair), and each launch's geometry as the
+   library reads it from the runtime (threads, CTAs per SM);
 4. the main path: ``epa_ng_tpu_torch.cli.main`` places 8192 evolved
    queries on a 512-taxon, 512-site tree under
    GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}, chunk 1024
@@ -38,12 +41,13 @@ Phases (any failure exits non-zero and prints no result line):
    port's own f64 CPU run (plain paths) of the same files, under the main
    model, under +IC on data with invariant columns, and under LG+G4, the
    mixture and LG+IC+G4;
-6. the DNA, +I and protein main paths once more under torch.profiler
-   (device time by kernel, busy share).
+6. the DNA, +I, protein and mixture main paths once more under
+   torch.profiler (device time by kernel, busy share).
 
-``python3 chip_smoke.py --fmad-ab`` runs phases 1-2 and then times the
+``python3 chip_smoke.py --fmad-ab`` runs phase 1 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
-16384 main-path pairs, with each build's agreement with the plain version.
+16384 DNA and 4096 protein main-path pairs, with each build's agreement
+with the plain version.
 
 The last two lines are the card (nvidia-smi) and
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels
@@ -124,7 +128,7 @@ def ptxas_summary(log: str) -> list:
             cur = f"R{m.group(1)} {home(m.group(2))} {flavour(m.group(3))}"
             spill = None
             continue
-        m = re.search(r"Function properties for \S*blo_newton_wide_kernel"
+        m = re.search(r"Function properties for \S*blo_newton_team_kernel"
                       r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", ln)
         if m:
             kind = "mixture" if m.group(2) == "1" else "single"
@@ -417,6 +421,10 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
     r.update(bound(sp, kout[6:], R, pinv, **shape))
     r["ms"] = cuda_ms(lambda: blocked(Wk), reps) if cuda else None
+    # the kernel's call alone, without the wrapper's tables and epilogue
+    args, _ = _kernel_args(pr)
+    r["kernel_call_ms"] = (cuda_ms(lambda: bk.blo_newton(
+        *args, **_pinv_kw(pr, torch.float32)), reps) if cuda else None)
     r["plain_ms"] = (cuda_ms(lambda: plain_runs(pr, Wk, f64=False), 1)
                      if cuda else None)
     r.update(pairs=len(sp), width=Wk, mean_span=float(sp.mean()))
@@ -443,11 +451,20 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     # --- blocked again, sumtable in device memory (a stride wider than
     # shared memory takes; same pairs, so the same plain results)
     Wg = bk.max_shared_sites(RK, pinv, K, mix) + 32
-    kout = blocked(Wg)
+    kout = blocked(Wg, counters=True)
     r = compare((kout[0], kout[1], kout[3]), shift(p32), shift(p64))
+    r.update(compare_counts(kout[6], kout[7], p32[5], p32[6]))
     r["ms"] = cuda_ms(lambda: blocked(Wg), reps) if cuda else None
     r["width"] = Wg
     res["blocked_device_memory"] = r
+    if K == 20 and cuda:
+        # the main path's launch geometry as the library reads it from the
+        # runtime, against wide_geometry's prediction
+        geo = bk.blo_newton.team_geometry(R, Wk, mix, pinv)
+        pred = bk.wide_geometry(R, Wk, mix, pinv)
+        check(geo == {k: pred[k] for k in geo},
+              f"K = 20 geometry {geo} is not the predicted {pred}")
+        res["geometry"] = geo
 
     # --- per-pair call shape (pre-sliced windows)
     W = 64
@@ -491,10 +508,32 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     return res
 
 
-def fmad_ab(data, n_pairs=16384, rounds=3, reps=20):
+def _timed_in_turns(builds, args, rounds, reps):
+    """Times of each build of the kernel (a dict of callables) on the same
+    arguments, taken in turns within this call (A B B A ...)."""
+    keys = list(builds)
+    ms = {k: [] for k in keys}
+    for r in range(rounds):
+        for k in (keys if r % 2 == 0 else keys[::-1]):
+            ms[k].append(cuda_ms(lambda: builds[k](*args), reps))
+    return ms
+
+
+def _kernel_args(pr):
+    """blo_newton's arguments for a main path's pairs at their width."""
+    from epa_ng_tpu_torch.ops import blo_kernel as bk
+    eng, blo = pr["eng"], pr["eng"].blo
+    Wk = bk.kernel_width(pr["sp"])
+    tables = bk._kernel_scalars(eng.consts, blo.tU.dtype)
+    return (tables, blo.tU, blo.tV, pr["tQ"], pr["e"], pr["q"], pr["b"],
+            pr["s"], pr["orig"], pr["skip"], Wk), Wk
+
+
+def fmad_ab(cases, rounds=3, reps=20):
     """The kernel built with and without nvcc's mul+add contraction (FMA),
-    on the main path's pairs: times taken in turns within this call, and
-    each build's agreement with the plain version in f32 and in f64."""
+    on each case's main-path pairs (``cases``: name -> (data, model,
+    pairs)): times taken in turns within this call, and each build's
+    agreement with the plain version in f32 and in f64."""
     from concurrent.futures import ThreadPoolExecutor
 
     from epa_ng_tpu_torch.ops import blo_kernel as bk
@@ -507,24 +546,24 @@ def fmad_ab(data, n_pairs=16384, rounds=3, reps=20):
                 fut.result()
         except RuntimeError as e:
             raise SmokeFailure(str(e)) from e
-    pr = main_path_pairs(data, "cuda", n_pairs)
-    eng, blo = pr["eng"], pr["eng"].blo
-    Wk = bk.kernel_width(pr["sp"])
-    tables = bk._kernel_scalars(eng.consts, blo.tU.dtype)
-    args = (tables, blo.tU, blo.tV, pr["tQ"], pr["e"], pr["q"], pr["b"],
-            pr["s"], pr["orig"], pr["skip"], Wk)
-    p32, p64 = plain_runs(pr, Wk)
-    out = {}
-    for fmad, k in builds.items():
-        kout = k(*args)
-        out[f"fmad_{fmad}"] = dict(
-            compare((kout[0], kout[1], kout[2]), p32, p64), ms=[])
-    for r in range(rounds):
-        for fmad in ((False, True) if r % 2 == 0 else (True, False)):
-            out[f"fmad_{fmad}"]["ms"].append(
-                cuda_ms(lambda: builds[fmad](*args), reps))
-    out.update(pairs=n_pairs, width=Wk, reps_per_time=reps)
-    return out
+    res = {}
+    for name, (data, model, n_pairs) in cases.items():
+        pr = main_path_pairs(data, "cuda", n_pairs, model)
+        args, Wk = _kernel_args(pr)
+        p32, p64 = plain_runs(pr, Wk)
+        out = {}
+        for fmad, k in builds.items():
+            kout = k(*args)
+            out[f"fmad_{fmad}"] = compare((kout[0], kout[1], kout[2]), p32,
+                                          p64)
+        ms = _timed_in_turns({f"fmad_{f}": k for f, k in builds.items()},
+                             args, rounds, reps)
+        for key, t in ms.items():
+            out[key]["ms"] = t
+        out.update(pairs=n_pairs, width=Wk, reps_per_time=reps)
+        res[name] = out
+        del pr
+    return res
 
 
 def _head(msa, n):
@@ -701,12 +740,20 @@ def profile_main(paths, device, model=MODEL, name="profiled", chunk=1024):
                              for e in top])
 
 
-def check_parity(tag, res):
+def check_parity(tag, res, exact=False):
+    """Every call shape and home within the gates; with ``exact`` (K = 20,
+    whose plain version adds in the team's order) bit for bit: logl max
+    abs 0.0 and the counters equal on every pair."""
     for name, r in res.items():
-        if name == "pv":
+        if name in ("pv", "geometry"):
             continue
         check(r["max_abs_err"] <= LOGL_ABS_TOL,
               f"{tag} {name}: logl max abs err {r['max_abs_err']}")
+        if exact:
+            check(r["max_abs_err"] == 0.0 and r["counts_equal"] == 1.0,
+                  f"{tag} {name}: not bit for bit (logl max abs "
+                  f"{r['max_abs_err']}, counters equal on "
+                  f"{r['counts_equal']:.4f})")
         check(max(r["pendant_q90"], r["distal_q90"]) <= LEN_Q90_TOL,
               f"{tag} {name}: length q90 {r['pendant_q90']}, "
               f"{r['distal_q90']}")
@@ -716,12 +763,12 @@ def check_parity(tag, res):
                   f"version's on {r['counts_equal']:.4f} of pairs")
 
 
-def parity_phase(tag, data, model):
+def parity_phase(tag, data, model, exact=False):
     """One parity phase on the card, printed and checked."""
     res = kernel_parity(data, "cuda", model=model)
     for k, v in res.items():
         print(f"{tag} {k}: " + json.dumps(v), flush=True)
-    check_parity(tag, res)
+    check_parity(tag, res, exact)
     if "pv" in res:
         check(res["pv"]["share_positive"] > 0,
               f"{tag}: the invariant term is 0 on every in-span cell")
@@ -783,7 +830,11 @@ def main(argv=()) -> int:
 
         if "--fmad-ab" in argv:
             data, _ = make_data(512, 512, 8192, 0, os.path.join(OUT, "data"))
-            res = fmad_ab(data)
+            adata, _ = make_data(256, 256, 2048, 0,
+                                 os.path.join(OUT, "data_aa"),
+                                 model=AA_MODEL, alphabet=AA)
+            res = fmad_ab({"dna": (data, MODEL, 16384),
+                           "protein": (adata, AA_MODEL, 4096)})
             print("fmad a/b: " + json.dumps(res), flush=True)
             print(smi)
             return 0
@@ -828,9 +879,10 @@ def main(argv=()) -> int:
         # phases 3-3e: each instantiation vs its plain version, counters
         par = parity_phase("parity", data, MODEL)
         ppar = parity_phase("+I parity", pdata, PINV_MODEL)
-        apar = parity_phase("K=20 parity", adata, AA_MODEL)
-        mpar = parity_phase("mixture parity", mdata, MIX_MODEL)
-        appar = parity_phase("K=20 +I parity", apdata, AA_PINV_MODEL)
+        apar = parity_phase("K=20 parity", adata, AA_MODEL, exact=True)
+        mpar = parity_phase("mixture parity", mdata, MIX_MODEL, exact=True)
+        appar = parity_phase("K=20 +I parity", apdata, AA_PINV_MODEL,
+                             exact=True)
 
         # phases 4-4d: the main paths, each with its counts reset
         stats = main_path(paths, n_queries, data[3], "cuda")
@@ -891,11 +943,24 @@ def main(argv=()) -> int:
         aprof = profile_main(apaths, "cuda", model=AA_MODEL,
                              name="profiled_aa", chunk=512)
         print("protein profile: " + json.dumps(aprof), flush=True)
+        mprof = profile_main(mpaths, "cuda", model=MIX_MODEL,
+                             name="profiled_mix", chunk=512)
+        print("mixture profile: " + json.dumps(mprof), flush=True)
 
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
         shapes = lambda p: {k: p[k] for k in ("blocked",
                                               "blocked_device_memory",
                                               "per_pair", "pv") if k in p}
+
+        def team(p):
+            """A K = 20 row's pairs off the f64 plain version and its launch
+            geometry at the main path's width, as the library read it from
+            the runtime."""
+            g = p["geometry"]
+            return dict(pairs_off_f64=p["blocked"]["pairs_off_f64"],
+                        threads_per_pair=g["threads"],
+                        ctas_per_sm=g["ctas_per_sm"],
+                        shared_bytes=g["shared_bytes"])
         kernels = [
             kernel_entry(
                 "blo_newton", "epa_ng_tpu/ops/pallas_blo.py:117",
@@ -932,13 +997,13 @@ def main(argv=()) -> int:
                 astats["k20_launches"], apar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
                 instantiation="LG+G4{0.8}: K = 20, one matrix, R = 4",
-                parity={**shapes(apar), **tol}),
+                **team(apar), parity={**shapes(apar), **tol}),
             kernel_entry(
                 "blo_newton mixture", "epa_ng_tpu/ops/pallas_blo.py:117",
                 mstats["mixture_launches"], mpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
                 instantiation=f"{MIX_MODEL}: K = 20, per-rate tables and "
-                "tip, R = 4",
+                "tip, R = 4", **team(mpar),
                 parity={**shapes(mpar), **tol}),
             kernel_entry(
                 "blo_newton_pinv K=20", "epa_ng_tpu/ops/pallas_blo.py:174",
@@ -947,7 +1012,7 @@ def main(argv=()) -> int:
                 instantiation="LG+I{0.2}+G4{0.8}: K = 20 with +I, R = 4",
                 launches_note="launches of the card's LG+IC+G4 small "
                 "reference run (phase 5): protein +I has no main path of "
-                "its own",
+                "its own", **team(appar),
                 parity={**shapes(appar), **tol}),
         ]
         for root, _, files in os.walk(OUT):

@@ -1,7 +1,8 @@
 // Thorough-placement Newton branch-length optimisation for DNA (K = 4) and
 // protein (K = 20) models, single-matrix and matrix-mixture, on Hopper
 // (sm_90a): the pplacer smoothing loop of the trilinear eigenbasis form,
-// one warp per (query, edge) pair.
+// one warp per (query, edge) pair at K = 4, a team of 256 threads per pair
+// at K = 20.
 //
 // Replaces (epa_ng_tpu/ops/pallas_blo.py):
 //   _blo_kernel_blocked       (K1, the fused step's and the exact path's)
@@ -34,19 +35,20 @@
 // windows (2*RK + K floats per site, 144 B at RK = 16; +8 B for invq and
 // ls with +I) and then runs ~80 FMA-class operations per site per Newton
 // iteration and ~440 per sumtable build, for ~5-15 Newton iterations per
-// solve and 2-4 smoothings. At K = 20 the build grows with K^2 (~2400
-// operations per site and rate against ~100) and the bound stays
-// operations. The working set that must stay on chip is T, RK floats per
-// site (64 KB for a 1024-site window at RK = 16, 80 KB for 256 sites at
-// RK = 80; one more row, pv, with +I), not the TPU's ~five [RK, W, 128]
-// tile sets (1 MB each at W = 128, RK = 16), which do not fit the 227 KB
-// of shared memory a block may use.
+// solve and 2-4 smoothings. At K = 20 the build grows with K^2 (2418
+// operations per site and rate against 98; ~90% of the pair's work at
+// ~7 builds and ~11 Newton iterations) and the bound stays operations:
+// the windows are 720 B per site at RK = 80 (960 B for a mixture), read
+// through L2 at every build, against ~70,000 operations per site.
+// The working set that must stay on chip is T, RK floats per site, not
+// the TPU's ~five [RK, W, 128] tile sets (1 MB each at W = 128, RK = 16),
+// which do not fit the 227 KB of shared memory a block may use.
 //
-// Design against that bound:
-//   * one warp per pair: lanes stride over the window's sites, d1/d2 and
-//     the score are reduced with an xor-butterfly of shuffles, which
-//     leaves the bit-identical sum in every lane, so the whole warp takes
-//     the same Newton/smoothing branches with no barrier at all;
+// DNA (K = 4, PairCtx, blo_newton_kernel), one warp per pair:
+//   * lanes stride over the window's sites, d1/d2 and the score are
+//     reduced with an xor-butterfly of shuffles, which leaves the
+//     bit-identical sum in every lane, so the whole warp takes the same
+//     Newton/smoothing branches with no barrier at all;
 //   * T lives in shared memory, [RK (+1)][width] floats per warp, reused
 //     for T1 and T2 (T1 is dead once the pendant solve is done); each lane
 //     only touches its own sites, so T needs no synchronisation either;
@@ -65,17 +67,64 @@
 //     executed Newton iterations (both solves, all smoothings) and
 //     smoothings, where the TPU kernel reports one count per 128-pair
 //     block, the lock-step trips that the block's slowest lanes set.
-// Windows too wide for shared memory ((RK (+1)) * width * 4 bytes of T per
-// warp above ops/blo_kernel.py::max_shared_sites) keep T in a
-// device-memory scratch instead, one slice per resident warp; the grid is
-// then capped to the scratch's slices and each warp loops over pairs. The
-// arithmetic is the same, so a window of any width runs the kernel.
+//   Windows too wide for shared memory ((RK (+1)) * width * 4 bytes of T
+//   per warp above ops/blo_kernel.py::max_shared_sites) keep T in a
+//   device-memory scratch instead, one slice per resident warp; the grid
+//   is then capped to the scratch's slices and each warp loops over pairs.
+//
+// Protein (K = 20, TeamCtx, blo_newton_team_kernel). A warp per pair held
+// four pairs of T (4 x 40 KB at RK = 80, width 128) in one block per SM:
+// 4 warps on an SM, each stalling in turn on its loads, its exponentials
+// and its barriers with nothing to cover them, re-reading its windows
+// from L2 at every build (~7 per pair), and a block of tables per four
+// slots, dead or alive. So:
+//   * one CTA per pair, a team of 256 threads (8 warps): at the main
+//     path's width each thread owns two (site, rate) units of a build
+//     (128 sites x 4 rates), rate-major with neighbouring lanes on
+//     neighbouring sites, so T rows (r*20+k)*width + w are free of bank
+//     conflicts; a rate gets 8/R warps (a tile of 256/R sites, in 32s), a
+//     thread the units w, w + tile, ... of its rate, and warps past R
+//     tiles idle. __launch_bounds__(256, 1) leaves ptxas up to 255
+//     registers, and the unrolled 20 x 20 back-transforms take 178-235
+//     without spill, so the register file holds one team: 8 warps an SM.
+//     512 threads (one unit each, 16 warps an SM at 128 registers) spilled
+//     40-140 B and ran 1.5% slower on protein pairs and 30% slower on
+//     mixture pairs (PERF.md);
+//   * persistent CTAs: the grid is what the 132 SMs hold at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and each CTA walks
+//     pairs p = blockIdx.x, p + gridDim.x, ... with the tables loaded into
+//     shared memory once; a dead slot costs its skip flag and its frozen
+//     outputs, and p is uniform over the team, so nothing diverges;
+//   * T lives in shared memory and the builds read the pair's windows
+//     (tU, tV [RK, span], tQ's K or RK rows) from L2, coalesced along
+//     sites, as the DNA code does. At RK = 80, width 128: 9,984 B of
+//     tables + 2 KB of exponential rows + 12.1 KB of reduction buffers +
+//     T 40,960 B = 65 KB; registers, not shared memory, hold an SM to one
+//     CTA. Staging the windows in shared memory once per pair (cp.async,
+//     92 KB more) was measured no faster than L2 on the main paths' pairs
+//     (PERF.md). Past max_shared_sites T goes to the device-memory
+//     scratch, one slice per CTA; ops/blo_kernel.py::wide_geometry and
+//     max_shared_sites mirror TeamLayout. The +I row pv is computed into
+//     T once per pair;
+//   * each warp keeps its own row of its rate's 20 exponentials (lane k
+//     fills entry k; __syncwarp only);
+//   * sums: the owner of unit (site, rate) sums its 20 eigen lanes in k
+//     order (the zero lane adds to f0 only) into a shared partial; after a
+//     barrier thread t adds the rates of its sites t, t + tile, ... in
+//     order r = 0..R-1 and the sites in that order, then the warp
+//     butterfly, then the warps in a fixed tree that every thread reads
+//     after one more barrier. One barrier publishes a chunk of 512 units
+//     (two tiles at R = 4); partials and warp slots alternate between two
+//     buffers, so one barrier per chunk and one per reduction suffice, and
+//     the whole team takes the same slide/snap/stop branches.
 //
 // Built without --use_fast_math (tiny is FLT_MIN and the rollback test
 // |new| * 1e-14 must stay as written) and with -fmad=false: the kernel
 // then rounds every product and sum as its plain version
-// (ops/blo_kernel.py::blo_newton_plain) does and agrees with it on every
-// pair, so a fault that touches a few pairs still shows. On the main
+// (ops/blo_kernel.py::blo_newton_plain, which repeats both reduction
+// orders) does and agrees with it on every pair, so a fault that touches a
+// few pairs still shows. It also caps every instantiation at half the
+// card's FMA rate: 2 x the operation bound at best. On the DNA main
 // path's pairs, mul+add contraction saves about 4% of the kernel's time,
 // and it parts from the plain version, in f32 and in f64 alike, by up to
 // a few logl units on about one pair in two thousand, where f32 is
@@ -84,11 +133,12 @@
 // The source is compiled twice, with BLO_HAS_PINV 0 and 1, into two
 // libraries that build in parallel; each holds the 16 DNA instantiations
 // (rate count x sumtable home) of its flavour, and the K = 20 ones
-// (WideCtx below: {single, mixture} x sumtable home without +I, single x
-// home with it; the JAX package takes no +I with a mixture).
+// ({single, mixture} x home without +I, single x home with it; the JAX
+// package takes no +I with a mixture).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 #include <cstdint>
 
@@ -333,8 +383,9 @@ struct PairCtx {
 };
 
 // out: logl, pendant, distal, proximal, done; counts: smoothings, Newton
-// iterations executed by this pair. Ctx is PairCtx (DNA) or WideCtx
-// (K = 20).
+// iterations executed by this pair. Ctx is PairCtx (DNA, one warp) or
+// TeamCtx (K = 20, a team of TEAM threads; every thread returns the same
+// values, its sums being the team's).
 template <bool HAS_PINV, class Ctx>
 __device__ void solve_pair(const Ctx& c_in, float orig, int max_smoothings,
                            float* out, int* counts) {
@@ -496,78 +547,93 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
 }
 
 // ---------------------------------------------------------------------------
-// K = 20 (protein), one substitution matrix or a matrix mixture (LG4M/LG4X).
+// K = 20 (protein), one substitution matrix or a matrix mixture (LG4M/LG4X):
+// a team of TEAM threads per pair in one persistent CTA (the design is in
+// the header).
 //
-// PairCtx keeps its exponential rows, u, v and h in registers; at K = 20,
-// R = 4 (RK = 80) two float E[RK] arrays alone are 160 floats a thread. So:
-//   * the exponential row e^{x_j t} of a length (a per-pair scalar row) is
-//     computed once per warp into shared memory, lane l filling entries l,
-//     l+32, ..., then read as a broadcast: every lane reads the identical
-//     float, so the warp still takes one branch everywhere;
-//   * the back-transform and the piA contraction run per eigen row i:
-//     hU_i and hV_i from u[K] and v[K] (sums over k), then
-//     acc[k] += piA[i][k] * (hU_i * hV_i) (sum over i), _blo_compute's
-//     orders, with about 3K floats (u, v, acc) live per (site, rate);
-//   * R is a runtime loop bound and K a template constant whose inner loops
-//     unroll, which keeps the build to two instantiations per flavour and
-//     sumtable home;
-//   * a mixture carries per-rate A and piA rows [RK][K] (rate r reads rows
-//     r*K..r*K+K-1) and a per-category query tip tQ [Q, RK, S]: T1
-//     multiplies T[r*K+k] by tip row r*K+k, T2 back-transforms tip rows
-//     r*K+k with rate r's A. The zero-eigenvalue lanes j % K == K-1 are
-//     exactly 0 in every component (ops/eigen.py), so they are skipped as
-//     in the DNA code.
-// Tables at the head of shared memory: x_rk [RK], wA [RK][K], A and piA
-// ([K][K], a mixture's [RK][K]), rounded up to 32 floats; then two
-// exponential rows [RK] per warp; then (shared home) T per warp.
-// ops/blo_kernel.py::_tab_bytes and _exp_bytes must match.
+// Shared memory of a CTA, in floats, each region on a 32-float boundary
+// (TeamLayout; ops/blo_kernel.py::wide_geometry must match):
+//   tables   x_rk [RK], wA [RK][NS], A and piA ([NS][NS], a mixture's
+//            [RK][NS])                                 wide_tab_floats
+//   exps     two rows of 32 floats per warp: e^{x t} of the warp's rate
+//   red      [2][3][RED_UNITS] per-unit partial sums, one buffer per chunk
+//            parity
+//   slots    [2][2][TEAM_WARPS] warp sums, one buffer per reduction parity
+//   T        [RK (+1)][width]             (in t_scratch instead: GLOBAL_T)
+
+constexpr int TEAM = 256;
+constexpr int TEAM_WARPS = TEAM / WARP;
+// (site, rate) units whose partial sums one barrier publishes: a chunk of
+// RED_UNITS / R sites (RED_UNITS / TEAM tiles)
+constexpr int RED_UNITS = 512;
+static_assert(RED_UNITS % TEAM == 0, "a chunk holds whole tiles");
+constexpr int SMEM_LIMIT_FLOATS = 232448 / 4;  // 227 KB a block may use
+
+__host__ __device__ inline int round32(int n) { return (n + 31) / 32 * 32; }
 
 __host__ __device__ inline int wide_tab_floats(int ns, int R, bool mix) {
   const int rk = R * ns;
-  const int n = rk + rk * ns + (mix ? 2 * rk * ns : 2 * ns * ns);
-  return (n + 31) / 32 * 32;
+  return round32(rk + rk * ns + (mix ? 2 * rk * ns : 2 * ns * ns));
 }
 
+struct TeamLayout {
+  int exps, red, slots, t, t_end;
+  __host__ __device__ TeamLayout(int ns, int R, bool mix, bool pinv,
+                                 int width) {
+    const int rk = R * ns;
+    exps = wide_tab_floats(ns, R, mix);
+    red = exps + TEAM_WARPS * 2 * 32;
+    slots = red + 2 * 3 * RED_UNITS;
+    t = slots + round32(2 * 2 * TEAM_WARPS);
+    t_end = t + round32((rk + (pinv ? 1 : 0)) * width);
+  }
+};
+
 template <int NS, bool MIX, bool HAS_PINV>
-struct WideCtx {
-  const float* __restrict__ tu;  // tU row block of this pair's edge [RK, S]
-  const float* __restrict__ tv;
-  const float* __restrict__ tq;  // tQ rows of this pair's query [NS|RK, S]
-  const float* __restrict__ iq;  // invq row of this pair's query [S] (+I)
-  const float* __restrict__ ls;  // ls row of this pair's edge [S] (+I)
-  int S;
+struct TeamCtx {
+  // the pair's window rows in device memory (row stride ld = S, site w at
+  // column begin + w)
+  const float* wu;               // [RK] rows of tU
+  const float* wv;               // [RK] rows of tV
+  const float* wq;               // [NS|RK] rows of tQ
+  int ld;
   int R;
-  int begin;
   int span;
   int width;                     // T row stride (>= span)
+  int tile;                      // sites per tile: 32 x the warps of a rate
+  int chunk;                     // sites per barrier: RED_UNITS / TEAM tiles
+  int tid;
   int lane;
+  int rate;                      // this warp's rate (>= R: an idle warp)
+  int site;                      // this thread's site within a tile
+  int sbuf;                      // slot buffer of the next reduction
   float omp;                     // 1 - pinv (+I)
-  float* T;                      // [RK (+1)][width], this warp's slice
-  float* E0;                     // [RK] shared, this warp's exponential rows
-  float* E1;                     // [RK]
+  float* T;                      // [RK (+1)][width]
+  float* E0;                     // [32] shared, this warp's exponential rows
+  float* E1;
+  float* red;                    // [2][3][RED_UNITS] shared
+  float* slots;                  // [2][2][TEAM_WARPS] shared
   const float* xrk;              // [RK]         shared
   const float* wA;               // [RK][NS]     shared
   const float* A;                // [NS|RK][NS]  shared
   const float* piA;              // [NS|RK][NS]  shared
 
-  // E[j] = exp(x_j t) (1 on the zero-eigenvalue lanes, never read), one
-  // shared row per warp. The first barrier lets every lane finish reading
-  // the row's previous values, the second publishes the new ones.
+  // E[k] = exp(x_{rate*NS+k} t) (1 on the zero-eigenvalue lane, never
+  // read): the warp's own row, lane k filling entry k. The first
+  // __syncwarp lets every lane finish reading the previous values, the
+  // second publishes the new ones; no block barrier.
   __device__ void exps(float t, float* E) const {
+    if (rate >= R) return;  // warp-uniform
     __syncwarp();
-    for (int j = lane; j < R * NS; j += WARP) {
-      E[j] = (j % NS == NS - 1) ? 1.0f : expf(xrk[j] * t);
+    if (lane < NS) {
+      E[lane] = (lane == NS - 1) ? 1.0f : expf(xrk[rate * NS + lane] * t);
     }
     __syncwarp();
   }
 
-  __device__ void fill_pv() {
-    const int rk = R * NS;
-    for (int w = lane; w < span; w += WARP) {
-      const int s = begin + w;
-      T[rk * width + w] = expf(iq[s] - ls[s]);
-    }
-  }
+  // the pv row is filled before the barrier that opens the pair
+  // (blo_newton_team_kernel)
+  __device__ void fill_pv() {}
 
   __device__ __forceinline__ float site_g(float f, int w) const {
     if constexpr (HAS_PINV) {
@@ -579,19 +645,18 @@ struct WideCtx {
 
   // T1 (T2 false): contract(wA-bt(tU e^{x la}), A-bt(tV e^{x lb})) * tQ
   // T2 (T2 true):  contract(wA-bt(tU e^{x la}), A-bt(tQ e^{x lb})) * tV
+  // Each thread builds the units (site, its rate) w = site, site + tile,
+  // ...; the barrier at the end publishes T.
   template <bool T2>
   __device__ void build(float la, float lb) {
     exps(la, E0);
     exps(lb, E1);
-    for (int w = lane; w < span; w += WARP) {
-      const int s = begin + w;
-      for (int r = 0; r < R; ++r) {
-        // a barrier for the compiler only: with T in device memory nothing
-        // in these loops writes shared memory, and a single matrix's 2 K^2
-        // coefficients are then loop-invariant; without the barrier they
-        // were hoisted out of the site and rate loops and spilled (72
-        // registers, 9.8 KB of spill), and read volatile they lost the
-        // wide shared loads (PERF.md)
+    if (rate < R) {
+      const int r = rate;
+      for (int w = site; w < span; w += tile) {
+        // a barrier for the compiler only: it keeps ptxas from hoisting
+        // a single matrix's 2 K^2 loop-invariant coefficients out of the
+        // unit loop into registers, which spills (PERF.md)
         asm volatile("" ::: "memory");
         const float* cw = wA + r * NS * NS;
         const float* ca = MIX ? A + r * NS * NS : A;
@@ -600,11 +665,11 @@ struct WideCtx {
 #pragma unroll
         for (int k = 0; k < NS; ++k) {
           const int j = r * NS + k;
-          u[k] = tu[j * S + s];
-          v[k] = T2 ? tq[(MIX ? j : k) * S + s] : tv[j * S + s];
+          u[k] = wu[j * ld + w];
+          v[k] = T2 ? wq[(MIX ? j : k) * ld + w] : wv[j * ld + w];
           if (k != NS - 1) {
-            u[k] *= E0[j];
-            v[k] *= E1[j];
+            u[k] *= E0[k];
+            v[k] *= E1[k];
           }
         }
 #pragma unroll
@@ -625,77 +690,155 @@ struct WideCtx {
 #pragma unroll
         for (int k = 0; k < NS; ++k) {
           const int j = r * NS + k;
-          const float o = T2 ? tv[j * S + s] : tq[(MIX ? j : k) * S + s];
+          const float o = T2 ? wv[j * ld + w] : wq[(MIX ? j : k) * ld + w];
           T[j * width + w] = acc[k] * o;
         }
       }
     }
+    __syncthreads();
   }
 
-  __device__ void build_t1(float lp, float ld) { build<false>(lp, ld); }
+  __device__ void build_t1(float lp, float ld_) { build<false>(lp, ld_); }
   __device__ void build_t2(float lprox, float lpend) {
     build<true>(lprox, lpend);
   }
 
-  // masked log-likelihood (scaled space) from T at pendant length lq
-  __device__ float score(float lq) const {
-    exps(lq, E0);
-    float acc = 0.0f;
-    for (int w = lane; w < span; w += WARP) {
-      float f = 0.0f;
-      for (int r = 0; r < R; ++r) {
+  // N sums over the team, returned in every thread: each thread's value
+  // (its sites, in tile order), the warp's xor butterfly, then the warps in
+  // a fixed tree (a[i] += a[i + h], h = TEAM_WARPS/2 .. 1), every thread
+  // reading the same slots. The slots alternate between two buffers, so
+  // one barrier per reduction suffices.
+  template <int N>
+  __device__ void team_sum(float (&v)[N]) {
+    float* s = slots + sbuf * 2 * TEAM_WARPS;
+    sbuf ^= 1;
 #pragma unroll
-        for (int k = 0; k < NS; ++k) {
-          const int j = r * NS + k;
-          const float t = T[j * width + w];
-          f += (k == NS - 1) ? t : t * E0[j];
-        }
-      }
-      acc += logf(fmaxf(site_g(f, w), FLT_MIN));
+    for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
+    if (lane == 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) s[n * TEAM_WARPS + tid / WARP] = v[n];
     }
-    return warp_sum(acc);
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      float a[TEAM_WARPS];
+#pragma unroll
+      for (int i = 0; i < TEAM_WARPS; ++i) a[i] = s[n * TEAM_WARPS + i];
+#pragma unroll
+      for (int h = TEAM_WARPS / 2; h > 0; h >>= 1) {
+#pragma unroll
+        for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
+      }
+      v[n] = a[0];
+    }
   }
 
-  // safeguarded Newton, PairCtx::newton's arithmetic over the shared row
+  // masked log-likelihood (scaled space) from T at pendant length lq: per
+  // chunk, each unit's sum over its 20 eigen lanes (k order) into red, a
+  // barrier, then thread t adds the rates of its sites t, t + tile, ... in
+  // order r = 0..R-1. The partials alternate between two buffers, so one
+  // barrier per chunk suffices.
+  __device__ float score(float lq) {
+    exps(lq, E0);
+    float acc[1] = {0.0f};
+    int buf = 0;
+    for (int base = 0; base < span; base += chunk, buf ^= 1) {
+      float* part = red + buf * 3 * RED_UNITS;
+      const int end = min(base + chunk, span);
+      if (rate < R) {
+        for (int w = base + site; w < end; w += tile) {
+          float f = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NS; ++k) {
+            const float t = T[(rate * NS + k) * width + w];
+            f += (k == NS - 1) ? t : t * E0[k];
+          }
+          part[rate * chunk + w - base] = f;
+        }
+      }
+      __syncthreads();
+      if (tid < tile) {
+        for (int ws = base + tid; ws < end; ws += tile) {
+          float f = part[ws - base];
+          for (int r = 1; r < R; ++r) f += part[r * chunk + ws - base];
+          acc[0] += logf(fmaxf(site_g(f, ws), FLT_MIN));
+        }
+      }
+    }
+    team_sum(acc);
+    return acc[0];
+  }
+
+  // safeguarded Newton, PairCtx::newton's step over the team's sums: f0,
+  // f1, f2 per unit (k order; the zero lane adds to f0 only), the rates in
+  // order per site, then d1 and d2 over the sites in one reduction
   __device__ float newton(float xmin, float xmax, float xtol, float guess,
-                          int& iters) const {
+                          int& iters) {
     float x = fminf(fmaxf(guess, xmin), xmax);
     float slid = 0.0f;
     bool done = false;
+    const int rc = R * chunk;
+    // the rate's exponent lanes, in registers for the whole solve
+    float xs[NS - 1];
+#pragma unroll
+    for (int k = 0; k < NS - 1; ++k) {
+      xs[k] = rate < R ? xrk[rate * NS + k] : 0.0f;
+    }
     for (int it = 0; it < MAX_ITERS && !done; ++it) {
       ++iters;
       exps(x, E0);
-      float d1p = 0.0f, d2p = 0.0f;
-      for (int w = lane; w < span; w += WARP) {
-        float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-        for (int r = 0; r < R; ++r) {
+      float d[2] = {0.0f, 0.0f};
+      int buf = 0;
+      for (int base = 0; base < span; base += chunk, buf ^= 1) {
+        float* part = red + buf * 3 * RED_UNITS;
+        const int end = min(base + chunk, span);
+        if (rate < R) {
+          for (int w = base + site; w < end; w += tile) {
+            float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
 #pragma unroll
-          for (int k = 0; k < NS; ++k) {
-            const int j = r * NS + k;
-            const float t = T[j * width + w];
-            if (k == NS - 1) {
-              f0 += t;  // zero-eigenvalue lane: x_j == 0 exactly
-            } else {
-              const float xj = xrk[j];
-              const float tE = t * E0[j];
-              f0 += tE;
-              f1 += tE * xj;
-              f2 += tE * (xj * xj);
+            for (int k = 0; k < NS; ++k) {
+              const float t = T[(rate * NS + k) * width + w];
+              if (k == NS - 1) {
+                f0 += t;  // zero-eigenvalue lane: x_j == 0 exactly
+              } else {
+                const float xj = xs[k];
+                const float tE = t * E0[k];
+                f0 += tE;
+                f1 += tE * xj;
+                f2 += tE * (xj * xj);
+              }
             }
+            const int u = rate * chunk + w - base;
+            part[u] = f0;
+            part[rc + u] = f1;
+            part[2 * rc + u] = f2;
           }
         }
-        const float g = fmaxf(site_g(f0, w), FLT_MIN);
-        const float inv_g = 1.0f / g;
-        if constexpr (HAS_PINV) {
-          f1 = omp * f1;
-          f2 = omp * f2;
+        __syncthreads();
+        if (tid < tile) {
+          for (int ws = base + tid; ws < end; ws += tile) {
+            const int u = ws - base;
+            float f0 = part[u], f1 = part[rc + u], f2 = part[2 * rc + u];
+            for (int r = 1; r < R; ++r) {
+              f0 += part[r * chunk + u];
+              f1 += part[rc + r * chunk + u];
+              f2 += part[2 * rc + r * chunk + u];
+            }
+            const float g = fmaxf(site_g(f0, ws), FLT_MIN);
+            const float inv_g = 1.0f / g;
+            if constexpr (HAS_PINV) {
+              f1 = omp * f1;
+              f2 = omp * f2;
+            }
+            const float r1 = f1 * inv_g;
+            d[0] += r1;
+            d[1] += f2 * inv_g - r1 * r1;
+          }
         }
-        const float r1 = f1 * inv_g;
-        d1p += r1;
-        d2p += f2 * inv_g - r1 * r1;
       }
-      const float d1 = warp_sum(d1p);
-      const float d2 = warp_sum(d2p);
+      team_sum(d);
+      const float d1 = d[0];
+      const float d2 = d[1];
       const float newton_x = x - d1 / (d2 == 0.0f ? 1.0f : d2);
       const float dirn = d1 > 0.0f ? 1.0f : -1.0f;
       const bool snap = (d2 >= 0.0f) && (slid * dirn > 0.0f);
@@ -713,10 +856,13 @@ struct WideCtx {
   }
 };
 
-// blo_newton_kernel for K = NS states with a runtime rate count R
+// K = NS states with a runtime rate count R: CTA b takes pairs b, b + grid,
+// ... (the grid is what the SMs hold at once), every thread of the team
+// holding the same p, so no thread diverges on it. GLOBAL_T: T in
+// t_scratch, one slice per CTA.
 template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV>
-__global__ void __launch_bounds__(128)
-blo_newton_wide_kernel(const float* __restrict__ tU,
+__global__ void __launch_bounds__(TEAM, 1)
+blo_newton_team_kernel(const float* __restrict__ tU,
                        const float* __restrict__ tV,
                        const float* __restrict__ tQ, int S, int R,
                        const float* __restrict__ invq,
@@ -732,7 +878,8 @@ blo_newton_wide_kernel(const float* __restrict__ tU,
                        const float* __restrict__ wA,
                        const float* __restrict__ A,
                        const float* __restrict__ piA, int P, int width,
-                       int max_smoothings, float* __restrict__ t_scratch,
+                       int max_smoothings,
+                       float* __restrict__ t_scratch,
                        float* __restrict__ out_logl,
                        float* __restrict__ out_pendant,
                        float* __restrict__ out_distal,
@@ -743,40 +890,44 @@ blo_newton_wide_kernel(const float* __restrict__ tU,
   const int RK = R * NS;
   const int KQ = MIX ? RK : NS;  // tip rows; also A/piA rows
   const size_t ROWS = RK + (HAS_PINV ? 1 : 0);
-  const int tab = wide_tab_floats(NS, R, MIX);
-  extern __shared__ float smem[];
+  const TeamLayout L(NS, R, MIX, HAS_PINV, width);
+  extern __shared__ __align__(16) float team_smem[];
+  float* smem = team_smem;
   float* s_x = smem;                 // [RK]
   float* s_wA = s_x + RK;            // [RK * NS]
   float* s_A = s_wA + RK * NS;       // [KQ * NS]
   float* s_piA = s_A + KQ * NS;      // [KQ * NS]
-  for (int i = threadIdx.x; i < RK; i += blockDim.x) s_x[i] = x_rk[i];
-  for (int i = threadIdx.x; i < RK * NS; i += blockDim.x) s_wA[i] = wA[i];
-  for (int i = threadIdx.x; i < KQ * NS; i += blockDim.x) {
+  for (int i = threadIdx.x; i < RK; i += TEAM) s_x[i] = x_rk[i];
+  for (int i = threadIdx.x; i < RK * NS; i += TEAM) s_wA[i] = wA[i];
+  for (int i = threadIdx.x; i < KQ * NS; i += TEAM) {
     s_A[i] = A[i];
     s_piA[i] = piA[i];
   }
   __syncthreads();
 
-  const int warps = blockDim.x / WARP;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const size_t slot = static_cast<size_t>(blockIdx.x) * warps + warp;
-
-  WideCtx<NS, MIX, HAS_PINV> c;
-  c.S = S;
+  const int tid = threadIdx.x;
+  const int warp = tid / WARP;
+  const int lane = tid % WARP;
+  const int per_rate = TEAM_WARPS / R;  // warps of a rate
+  TeamCtx<NS, MIX, HAS_PINV> c;
+  c.ld = S;
   c.R = R;
   c.width = width;
+  c.tile = per_rate * WARP;
+  c.chunk = c.tile * (RED_UNITS / TEAM);
+  c.tid = tid;
   c.lane = lane;
+  c.rate = warp / per_rate;
+  c.site = (warp % per_rate) * WARP + lane;
   c.omp = HAS_PINV ? omp[0] : 1.0f;
-  c.iq = nullptr;
-  c.ls = nullptr;
-  c.E0 = smem + tab + static_cast<size_t>(warp) * 2 * RK;
-  c.E1 = c.E0 + RK;
+  c.E0 = smem + L.exps + warp * 64;
+  c.E1 = c.E0 + 32;
+  c.red = smem + L.red;
+  c.slots = smem + L.slots;
   if constexpr (GLOBAL_T) {
-    c.T = t_scratch + slot * ROWS * width;
+    c.T = t_scratch + static_cast<size_t>(blockIdx.x) * ROWS * width;
   } else {
-    c.T = smem + tab + static_cast<size_t>(warps) * 2 * RK +
-          static_cast<size_t>(warp) * ROWS * width;
+    c.T = smem + L.t;
   }
   c.xrk = s_x;
   c.wA = s_wA;
@@ -784,8 +935,7 @@ blo_newton_wide_kernel(const float* __restrict__ tU,
   c.piA = s_piA;
   const bool count = out_iters != nullptr;
 
-  // warp-uniform loop: every lane of a warp holds the same p
-  for (int p = static_cast<int>(slot); p < P; p += gridDim.x * warps) {
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
     const float orig = orig_len[p];
     float out[5];
     int counts[2] = {0, 0};
@@ -798,18 +948,24 @@ blo_newton_wide_kernel(const float* __restrict__ tU,
     } else {
       const int64_t e = e_ids[p];
       const int64_t q = q_ids[p];
-      c.tu = tU + e * RK * S;
-      c.tv = tV + e * RK * S;
-      c.tq = tQ + q * KQ * S;
+      const int begin = max(begins[p], 0);
+      const int span = min(min(spans[p], width), S - begin);
+      c.span = span;
+      c.sbuf = 0;
+      c.wu = tU + e * RK * S + begin;
+      c.wv = tV + e * RK * S + begin;
+      c.wq = tQ + q * KQ * S + begin;
       if constexpr (HAS_PINV) {
-        c.iq = invq + q * S;
-        c.ls = ls + e * S;
+        // the +I row of T: pv = exp(invq - ls) over the span, once per pair
+        for (int w = tid; w < span; w += TEAM) {
+          const int s = begin + w;
+          c.T[RK * width + w] = expf(invq[q * S + s] - ls[e * S + s]);
+        }
       }
-      c.begin = max(begins[p], 0);
-      c.span = min(min(spans[p], width), S - c.begin);
+      __syncthreads();
       solve_pair<HAS_PINV>(c, orig, max_smoothings, out, counts);
     }
-    if (lane == 0) {
+    if (tid == 0) {
       out_logl[p] = out[0];
       out_pendant[p] = out[1];
       out_distal[p] = out[2];
@@ -883,36 +1039,72 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_as<R, false, HAS_PINV>(a, stream);
 }
 
+// Sets the instantiation's shared memory, reads how many of its CTAs an SM
+// holds (the runtime's occupancy) and, with ``a``, launches that many
+// persistent CTAs per SM (never more than ``blocks``, the pairs or the
+// device-memory scratch's slices). geo = {threads per CTA, CTAs per SM,
+// dynamic shared bytes, T in shared memory}.
 template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV>
-int launch_wide_as(const Args& a, cudaStream_t stream) {
-  const int rk = a.num_rates * NS;
-  const size_t rows = rk + (HAS_PINV ? 1 : 0);
-  const size_t t_floats =
-      GLOBAL_T ? 0 : static_cast<size_t>(a.pairs_per_block) * rows * a.width;
-  const size_t smem =
-      sizeof(float) * (wide_tab_floats(NS, a.num_rates, MIX) +
-                       static_cast<size_t>(a.pairs_per_block) * 2 * rk +
-                       t_floats);
+int launch_team_as(const Args* a, int smem_floats, int* geo,
+                   cudaStream_t stream) {
+  const auto kernel = blo_newton_team_kernel<NS, MIX, GLOBAL_T, HAS_PINV>;
+  const int smem = smem_floats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      blo_newton_wide_kernel<NS, MIX, GLOBAL_T, HAS_PINV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blo_newton_wide_kernel<NS, MIX, GLOBAL_T, HAS_PINV>
-      <<<a.blocks, WARP * a.pairs_per_block, smem, stream>>>(
-          a.tU, a.tV, a.tQ, a.S, a.num_rates, a.invq, a.ls, a.omp, a.e_ids,
-          a.q_ids, a.begins, a.spans, a.orig_len, a.skip, a.x_rk, a.wA, a.A,
-          a.piA, a.P, a.width, a.max_smoothings, a.t_scratch, a.logl,
-          a.pendant, a.distal, a.proximal, a.done, a.smoothings, a.iters);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        TEAM, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  geo[0] = TEAM;
+  geo[1] = per_sm;
+  geo[2] = smem;
+  geo[3] = GLOBAL_T ? 0 : 1;
+  if (a == nullptr) return 0;
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const int grid = std::max(1, std::min(a->blocks, per_sm * sms));
+  kernel<<<grid, TEAM, smem, stream>>>(
+      a->tU, a->tV, a->tQ, a->S, a->num_rates, a->invq, a->ls, a->omp,
+      a->e_ids, a->q_ids, a->begins, a->spans, a->orig_len, a->skip,
+      a->x_rk, a->wA, a->A, a->piA, a->P, a->width, a->max_smoothings,
+      a->t_scratch, a->logl, a->pendant, a->distal, a->proximal, a->done,
+      a->smoothings, a->iters);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the sumtable's home: shared memory where T fits, else (``device_t``: a
+// t_scratch given) device memory; with ``a`` null only geo is filled
 template <bool MIX>
-int launch_wide(const Args& a, cudaStream_t stream) {
+int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
+                cudaStream_t stream) {
   constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
-  if (a.t_scratch != nullptr) {
-    return launch_wide_as<20, MIX, true, HAS_PINV>(a, stream);
+  const TeamLayout L(20, R, MIX, HAS_PINV, width);
+  if (device_t) {
+    return launch_team_as<20, MIX, true, HAS_PINV>(a, L.t, geo, stream);
   }
-  return launch_wide_as<20, MIX, false, HAS_PINV>(a, stream);
+  if (L.t_end <= SMEM_LIMIT_FLOATS) {
+    return launch_team_as<20, MIX, false, HAS_PINV>(a, L.t_end, geo,
+                                                    stream);
+  }
+  return -3;
+}
+
+int blo_newton_team(const Args* a, int R, int mixture, int width,
+                    bool device_t, int* geo, cudaStream_t stream) {
+  if (mixture) {
+#if BLO_HAS_PINV
+    return -1;  // no +I with a matrix mixture
+#else
+    return launch_team<true>(a, R, width, device_t, geo, stream);
+#endif
+  }
+  return launch_team<false>(a, R, width, device_t, geo, stream);
 }
 
 }  // namespace
@@ -922,9 +1114,13 @@ extern "C" {
 // Returns 0 or a cudaError_t code. num_states (4 or 20), num_rates (1-8)
 // and mixture (per-rate A/piA [RK][K] and tQ [Q, RK, S]; K = 20 only, and
 // not in the +I library) select the instantiation, RK = num_states *
-// num_rates; -1 means an unsupported combination, -2 a missing +I input.
-// t_scratch is null for T in shared memory, else blocks * pairs_per_block
-// slices of [RK (+1)][width] floats in device memory. invq [Q, S], ls
+// num_rates; -1 means an unsupported combination, -2 a missing +I input,
+// -3 a K = 20 sumtable too wide for shared memory without a t_scratch.
+// DNA: blocks of pairs_per_block warps; t_scratch is null for T in shared
+// memory, else blocks * pairs_per_block slices of [RK (+1)][width] floats
+// in device memory. K = 20: pairs_per_block is not read; at most
+// ``blocks`` persistent CTAs, and t_scratch is null (T in shared memory)
+// or holds ``blocks`` such slices. invq [Q, S], ls
 // [E, S] and omp [1] are read only by the +I library; smoothings and
 // iters [P] are both null (no counters) or both set.
 int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
@@ -953,14 +1149,9 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rates < 1 || num_rates > MAX_R) return -1;
   if (num_states == 20) {
-    if (mixture) {
-#if BLO_HAS_PINV
-      return -1;  // no +I with a matrix mixture
-#else
-      return launch_wide<true>(a, st);
-#endif
-    }
-    return launch_wide<false>(a, st);
+    int geo[4];
+    return blo_newton_team(&a, num_rates, mixture, width,
+                           t_scratch != nullptr, geo, st);
   }
   if (num_states != K || mixture) return -1;
   switch (num_rates) {
@@ -976,12 +1167,28 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
   }
 }
 
+// The geometry a K = 20 launch at this rate count, mixture flag and width
+// takes (device_t: with a t_scratch), as the launcher reads it from the
+// runtime: geo[4] = {threads per CTA, CTAs per SM, dynamic shared bytes,
+// 1 if T is in shared memory}. Returns 0 or an error code as
+// blo_newton_launch does.
+int blo_newton_team_geometry(int num_rates, int mixture, int width,
+                             int device_t, int* geo) {
+  if (num_rates < 1 || num_rates > MAX_R || width < 1) return -1;
+  return blo_newton_team(nullptr, num_rates, mixture, width, device_t != 0,
+                         geo, nullptr);
+}
+
 const char* blo_newton_error_string(int code) {
   if (code == -1) {
     return "unsupported state count, rate count or mixture (4 or 20 "
            "states, 1-8 rates, mixtures at 20 states without +I)";
   }
   if (code == -2) return "missing +I input or counter output";
+  if (code == -3) {
+    return "the K = 20 sumtable does not fit shared memory at this width "
+           "(pass a device-memory scratch)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

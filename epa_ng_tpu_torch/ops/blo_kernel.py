@@ -45,7 +45,9 @@ Wrappers with the JAX package's call shapes:
 Both take ``counters`` (K5's executed smoothings and Newton iterations,
 per pair). The kernel takes a window of any width: its sumtable sits in
 shared memory up to :func:`max_shared_sites` and in device memory beyond,
-so the engine never needs the TPU path's windowed fallbacks.
+so the engine never needs the TPU path's windowed fallbacks. DNA runs one
+warp per pair; K = 20 a team of ``WIDE_TEAM`` threads per pair in one
+persistent CTA (:func:`wide_geometry`).
 """
 
 from __future__ import annotations
@@ -68,20 +70,32 @@ from epa_ng_tpu_torch.ops.newton import (BRLEN_DEFAULT, BRLEN_MAX, BRLEN_MIN,
 K_STATES = (4, 20)  # DNA and protein instantiations of the kernel
 MAX_RATES = 8       # rate categories the kernel takes (csrc/blo_newton.cu)
 PB = 128            # pair-padding granule of the engine's control flow
-# The per-pair sumtable T ([RK, width] f32 per warp) lives in shared memory
-# up to 96 KB, which keeps at least two pairs resident per H100 SM (227 KB
-# usable per block): 1536-site windows at RK = 16, 288 at RK = 80. Wider
-# windows keep T in a device-memory scratch of at most T_SCRATCH_BYTES,
-# one slice per resident warp, each warp looping over pairs.
+# DNA: the per-pair sumtable T ([RK, width] f32 per warp) lives in shared
+# memory up to 96 KB, which keeps at least two pairs resident per H100 SM
+# (227 KB usable per block): 1536-site windows at RK = 16. Wider windows
+# keep T in a device-memory scratch of at most T_SCRATCH_BYTES, one slice
+# per resident warp, each warp looping over pairs.
 MAX_RK_SITES = 24576
 MAX_SHARED_SITES = 1536
 SMEM_PER_BLOCK = 227 * 1024
+SMEM_PER_SM = 228 * 1024      # of which the runtime keeps 1 KB per block
 T_SCRATCH_BYTES = 256 << 20
+# K = 20: threads per pair (csrc/blo_newton.cu TEAM), one persistent CTA
+# each; __launch_bounds__(WIDE_TEAM, 1) gives a thread the register file's
+# share, at most 255; one barrier publishes the partial sums of RED_UNITS
+# (site, rate) units
+WIDE_TEAM = 256
+RED_UNITS = 512
+SM_REGISTERS = 65536
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "blo_newton.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
 
 
 def _tab_bytes(k: int, r: int, mixture: bool = False) -> int:
@@ -93,27 +107,67 @@ def _tab_bytes(k: int, r: int, mixture: bool = False) -> int:
         return 192 * 4
     rk = r * k
     floats = rk + rk * k + (2 * rk * k if mixture else 2 * k * k)
-    return -(-floats // 32) * 32 * 4
+    return _round32(floats) * 4
 
 
-def _exp_bytes(k: int, rk: int) -> int:
-    """Shared memory per warp for the exponential rows e^{x t} (two rows of
-    RK floats) that the K = 20 instantiations keep there rather than in
-    registers; the DNA ones keep theirs in registers."""
-    return 0 if k == 4 else 2 * rk * 4
+def _exp_bytes(k: int) -> int:
+    """Shared memory of a CTA for the exponential rows e^{x t} that the
+    K = 20 team keeps there (two rows of 32 floats per warp, each holding
+    its warp's rate's 20); the DNA warps keep theirs in registers."""
+    return 0 if k == 4 else WIDE_TEAM // 32 * 2 * 32 * 4
+
+
+def _red_bytes(k: int) -> int:
+    """Shared memory of a K = 20 CTA for its reductions: per-unit partial
+    sums [2][3][RED_UNITS] and warp slots [2][2][warps] (rounded up to 32
+    floats); the DNA warps reduce by shuffles alone."""
+    return 0 if k == 4 else (6 * RED_UNITS
+                             + _round32(4 * WIDE_TEAM // 32)) * 4
+
+
+def _team_fixed_bytes(R: int, mixture: bool) -> int:
+    """A K = 20 CTA's shared memory ahead of T: tables, exponential rows,
+    reduction buffers."""
+    return _tab_bytes(20, R, mixture) + _exp_bytes(20) + _red_bytes(20)
+
+
+def wide_geometry(R: int, width: int, mixture: bool = False,
+                  has_pinv: bool = False) -> dict:
+    """The K = 20 kernel's geometry for R rate categories and sumtable width
+    ``width``, as csrc/blo_newton.cu (``TeamLayout``, ``launch_team``)
+    sets it up: ``threads`` per pair (one CTA), ``tile`` sites per tile
+    (32 x the warps of a rate), ``t_shared`` (T in shared memory; else in
+    the device-memory scratch) and ``shared_bytes`` of the CTA; and the
+    predicted ``ctas_per_sm`` and ``warps_per_sm``, on the assumption that
+    a team takes the register file (the launcher reads the runtime's
+    occupancy instead: :meth:`_BloNewton.team_geometry`)."""
+    rk = 20 * R
+    fixed = _team_fixed_bytes(R, mixture)
+    t = _round32((rk + has_pinv) * width) * 4
+    t_shared = fixed + t <= SMEM_PER_BLOCK
+    shared = fixed + t * t_shared
+    warps = WIDE_TEAM // 32
+    regs = min(255, SM_REGISTERS // WIDE_TEAM)
+    ctas = min(2048 // WIDE_TEAM, SM_REGISTERS // (WIDE_TEAM * regs),
+               SMEM_PER_SM // (shared + 1024))
+    return dict(threads=WIDE_TEAM, tile=32 * max(1, warps // R),
+                t_shared=t_shared, shared_bytes=shared,
+                ctas_per_sm=ctas, warps_per_sm=ctas * warps)
 
 
 def max_shared_sites(rk: int, has_pinv: bool = False, num_states: int = 4,
                      mixture: bool = False) -> int:
     """Widest window whose sumtable the kernel keeps in shared memory; wider
-    windows keep it in device memory. +I adds one row (pv) to the
-    sumtable: 1440 sites at RK = 16. Two pairs and the scalar tables of
-    the instantiation must fit one block: 288 sites at RK = 80, single
-    matrix or mixture."""
+    windows keep it in device memory. DNA: two pairs of T per block, up
+    to 96 KB each; +I adds one row (pv) to the sumtable: 1440 sites at
+    RK = 16. K = 20: one pair's T beside the team's tables, exponential
+    rows and reduction buffers: 640 sites at RK = 80, with or without +I
+    (608 for a mixture)."""
     rows = rk + has_pinv
-    k = num_states
-    two = ((SMEM_PER_BLOCK - _tab_bytes(k, rk // k, mixture)
-            - 2 * _exp_bytes(k, rk)) // (2 * 4 * rows))
+    if num_states == 20:
+        room = SMEM_PER_BLOCK - _team_fixed_bytes(rk // 20, mixture)
+        return room // (rows * 4) // 32 * 32
+    two = (SMEM_PER_BLOCK - _tab_bytes(4, rk // 4)) // (2 * 4 * rows)
     return min(MAX_SHARED_SITES, MAX_RK_SITES // rows // 32 * 32,
                two // 32 * 32)
 
@@ -178,6 +232,31 @@ def _omp(consts, dtype):
 # plain version
 
 
+def team_site_sum(x, tile: int = 32, warps: int = 1):
+    """The kernel's sum over a window's sites, [n, W] -> [n]: thread t of
+    the first ``tile`` threads adds sites t, t + tile, ... in turn; each
+    warp's 32 thread sums meet in an xor butterfly (lane i adds lane
+    i ^ m's value, m = 16 .. 1, which leaves the same float in every lane);
+    then the ``warps`` warp sums (zero past the tile) meet in a fixed tree,
+    a[i] += a[i + h] for h = warps/2 .. 1. One warp (tile 32, K = 4) or a
+    K = 20 team (``WIDE_TEAM`` threads, a tile per rate-count)."""
+    n, W = x.shape
+    x = torch.nn.functional.pad(x, (0, -W % tile)).reshape(n, -1, tile)
+    acc = x[:, 0]
+    for c in range(1, x.shape[1]):
+        acc = acc + x[:, c]
+    acc = acc.reshape(n, tile // 32, 32)
+    lane = torch.arange(32, device=x.device)
+    for m in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lane ^ m]
+    a = torch.nn.functional.pad(acc[:, :, 0], (0, warps - tile // 32))
+    h = warps // 2
+    while h:
+        a = a[:, :h] + a[:, h:2 * h]
+        h //= 2
+    return a[:, 0]
+
+
 def _gather_windows(tU, tV, tQ, e_ids, q_ids, begins, spans, width, skip,
                     invq=None, ls=None):
     """Per-pair windows [P, RK, W] / [P, K, W] starting at each pair's
@@ -216,10 +295,13 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     :data:`blo_newton`, for K = 4 and K = 20, a single matrix or a matrix
     mixture: ``A``/``piA`` of [K, K] or per-rate [RK, K] rows, a query tip
     ``tQ`` of K or RK (per-category) rows. Sums run in the kernel's
-    orders: back-transform over k, contraction over i, f0/f1/f2 and the
-    score over j, and over a window's sites lane by lane, then a warp's
-    xor butterfly (``site_sum``); so on a borderline pair both take the
-    same Newton stops. With ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
+    orders (``site_sum``, ``eigen_sums``): back-transform over k,
+    contraction over i; at K = 4 f0/f1/f2 and the score over j, and a
+    window's sites lane by lane, then a warp's xor butterfly; at K = 20
+    per rate over k, then the rates in order, and the sites as the team
+    adds them (lane by lane over tiles, the warp butterfly, the warps in a
+    fixed tree). So on a borderline pair both take the same Newton stops.
+    With ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
     (1 - pinv) the +I term joins every site likelihood,
     g = omp * f + exp(invq[q] - ls[e]), in the kernel's order of
     operations. With ``counters``, also returns per-pair executed
@@ -252,19 +334,38 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     def exps(t):                                             # [n] -> [n, RK]
         return torch.exp(x_rk[None, :] * t[:, None])
 
+    # the kernel's sum over a window's sites: one warp at K = 4, a team of
+    # WIDE_TEAM threads at K = 20 (csrc/blo_newton.cu TeamCtx::team_sum)
+    tile, warps = ((32, 1) if K == 4
+                   else (32 * max(1, WIDE_TEAM // 32 // R), WIDE_TEAM // 32))
+
     def site_sum(x):                                         # [n, W] -> [n]
-        """The kernel's order over a window's sites: lane l of a warp sums
-        sites l, l+32, ... in turn, then an xor butterfly over the 32 lane
-        sums (warp_sum), which ends with the same float in every lane."""
-        n = x.shape[0]
-        x = torch.nn.functional.pad(x, (0, -W % 32)).reshape(n, -1, 32)
-        acc = x[:, 0]
-        for c in range(1, x.shape[1]):
-            acc = acc + x[:, c]
-        lane = torch.arange(32, device=x.device)
-        for m in (16, 8, 4, 2, 1):
-            acc = acc + acc[:, lane ^ m]
-        return acc[:, 0]
+        return team_site_sum(x, tile, warps)
+
+    def eigen_sums(T, E, derivs):
+        """Per site, the sums over the RK eigen lanes of T * E (the zero
+        lanes add T alone) and, with ``derivs``, of T * E * x and
+        T * E * x^2 (the zero lanes add nothing): at K = 4 over j in
+        order; at K = 20 per rate over k, then the rates in order."""
+        xs = (x_rk, x_rk * x_rk) if derivs else ()
+        groups = ([slice(j, j + 1) for j in range(RK)] if K == 4
+                  else [slice(k, RK, K) for k in range(K)])
+        sums = [None] * (1 + len(xs))
+        for g in groups:
+            t = T[:, g]
+            zero = zero_lane[g.start]
+            tE = t if zero else t * E[:, g, None]
+            terms = [tE] + ([] if zero else
+                            [tE * c[g, None] for c in xs])
+            for i, v in enumerate(terms):
+                sums[i] = v if sums[i] is None else sums[i] + v
+        out = []
+        for s in sums:
+            acc = s[:, 0]
+            for r in range(1, s.shape[1]):
+                acc = acc + s[:, r]
+            out.append(acc)
+        return out
 
     def tip_rk(t):
         """The query tip over all RK lanes: a mixture's is per category
@@ -301,10 +402,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         return f if pv_ is None else omp * f + pv_
 
     def score_from(T, lq, m, pv_):
-        E = exps(lq)
-        f = T[:, 0] * E[:, 0, None]
-        for j in range(1, RK):
-            f = f + (T[:, j] if zero_lane[j] else T[:, j] * E[:, j, None])
+        f, = eigen_sums(T, exps(lq), derivs=False)
         g = torch.clamp(site_g(f, pv_), min=tiny)
         return site_sum(m * torch.log(g))
 
@@ -318,17 +416,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
         for _ in range(MAX_ITERS):
             if bool(done.all()):
                 break
-            E = exps(x)
-            f0 = f1 = f2 = None
-            for j in range(RK):
-                tE = T[:, j] if zero_lane[j] else T[:, j] * E[:, j, None]
-                f0 = tE if f0 is None else f0 + tE
-                if zero_lane[j]:
-                    continue
-                xj = x_rk[j]
-                f1 = tE * xj if f1 is None else f1 + tE * xj
-                f2 = (tE * (xj * xj) if f2 is None
-                      else f2 + tE * (xj * xj))
+            f0, f1, f2 = eigen_sums(T, exps(x), derivs=True)
             # +I: g = omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2
             g = torch.clamp(site_g(f0, pv_), min=tiny)
             inv_g = 1.0 / g
@@ -534,10 +622,29 @@ class _BloNewton:
             lib.blo_newton_launch.argtypes = (
                 [ptr] * 3 + [i32] * 4 + [ptr] * 3 + [ptr] * 6
                 + [ptr] * 4 + [i32] * 5 + [ptr] + [ptr] * 7 + [ptr])
+            lib.blo_newton_team_geometry.restype = i32
+            lib.blo_newton_team_geometry.argtypes = [i32] * 4 + [ptr]
             lib.blo_newton_error_string.restype = ctypes.c_char_p
             lib.blo_newton_error_string.argtypes = [i32]
             self._libs[has_pinv] = lib
             return lib
+
+    def team_geometry(self, R: int, width: int, mixture: bool = False,
+                      has_pinv: bool = False,
+                      device_t: bool = False) -> dict:
+        """The geometry of a K = 20 launch as the library sets it up on the
+        current card: ``threads`` per CTA, ``ctas_per_sm`` (the runtime's
+        occupancy, which sets the persistent grid), ``shared_bytes`` and
+        ``t_shared``; ``device_t`` as with a device-memory scratch."""
+        lib = self.build(has_pinv)
+        geo = (ctypes.c_int * 4)()
+        rc = lib.blo_newton_team_geometry(R, int(mixture), width,
+                                          int(device_t), geo)
+        if rc != 0:
+            msg = lib.blo_newton_error_string(rc).decode()
+            raise RuntimeError(f"blo_newton geometry: {msg} ({rc})")
+        return dict(threads=geo[0], ctas_per_sm=geo[1],
+                    shared_bytes=geo[2], t_shared=bool(geo[3]))
 
     def build_all(self):
         """Build both flavours with two nvcc processes side by side."""
@@ -612,12 +719,24 @@ class _BloNewton:
                    for _ in range(2)] if counters else [])
         rows = RK + has_pinv
         per_pair = rows * width * 4
-        if width <= max_shared_sites(RK, has_pinv, K, mixture):
+        scratch = None
+        if K == 20:
+            # one persistent CTA per resident team; the library keeps T in
+            # shared memory where it fits (wide_geometry mirrors its choice)
+            ppb, blocks = 0, P
+            geo = wide_geometry(R, width, mixture, has_pinv)
+            if not geo["t_shared"]:
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                blocks = max(1, min(P, sms * geo["ctas_per_sm"],
+                                    T_SCRATCH_BYTES // per_pair))
+                scratch = torch.empty(blocks * rows * width,
+                                      dtype=torch.float32, device=dev)
+        elif width <= max_shared_sites(RK, has_pinv, K, mixture):
             # T in shared memory; one warp per pair
-            ppb = max(1, min(4, (SMEM_PER_BLOCK - _tab_bytes(K, R, mixture))
-                             // (per_pair + _exp_bytes(K, RK))))
+            ppb = max(1, min(4, (SMEM_PER_BLOCK - _tab_bytes(K, R))
+                             // per_pair))
             blocks = -(-P // ppb)
-            scratch = None
         else:
             # T in device memory: as many warps as the scratch has slices,
             # each looping over pairs

@@ -339,14 +339,20 @@ def test_blo_supported_and_op_count(model_consts, model):
     # +I adds one sumtable row: 17 rows of 1440 sites stay within 96 KB
     assert bk.max_shared_sites(16, has_pinv=True) == 1440
     assert 17 * 1440 * 4 <= bk.MAX_RK_SITES * 4
-    # RK = 80: 288 sites; two pairs, the scalar tables and the exponential
-    # rows fit one block, single matrix or mixture, with or without +I
-    assert bk.max_shared_sites(80, False, 20, mix) == 288
-    assert bk.max_shared_sites(80, True, 20) == 288
+    # RK = 80: one team's T beside its scalar tables, exponential rows and
+    # reduction buffers, in one CTA: 640 sites (608 for a mixture), with
+    # or without +I
+    assert bk.max_shared_sites(80, False, 20, mix) == (608 if mix else 640)
+    assert bk.max_shared_sites(80, True, 20) == 640
     for R in range(1, bk.MAX_RATES + 1):
         rows, w = 20 * R, bk.max_shared_sites(20 * R, False, 20, True)
-        assert (bk._tab_bytes(20, R, True) + 2 * bk._exp_bytes(20, rows)
-                + 2 * rows * w * 4) <= bk.SMEM_PER_BLOCK
+        fixed = (bk._tab_bytes(20, R, True) + bk._exp_bytes(20)
+                 + bk._red_bytes(20))
+        assert fixed + rows * w * 4 <= bk.SMEM_PER_BLOCK
+        assert fixed + rows * (w + 32) * 4 > bk.SMEM_PER_BLOCK
+    assert bk._exp_bytes(4) == bk._red_bytes(4) == 0
+    assert bk._exp_bytes(20) == 8 * 2 * 32 * 4
+    assert bk._red_bytes(20) == (2 * 3 * 512 + 32) * 4
     # the tables' sizes as csrc/blo_newton.cu lays them out
     assert bk._tab_bytes(4, 8) == 192 * 4
     assert bk._tab_bytes(20, 4) == -(-(80 + 1600 + 800) // 32) * 32 * 4
@@ -372,3 +378,72 @@ def test_blo_supported_and_op_count(model_consts, model):
         100 * (2 * RK + kq) * 4 + 44)
     assert bk.blo_byte_count([100], 4) == 100 * 144 + 44
     assert bk.blo_byte_count([100], 4, True, True) == 100 * 152 + 52
+
+
+def _team_sum_loop(row, tile, warps):
+    """The kernel's site order for one pair, written out in float32: each
+    of the first ``tile`` threads adds its sites t, t + tile, ... from 0;
+    each warp's xor butterfly; the warps' fixed tree."""
+    f = np.float32
+    threads = [f(0.0)] * (32 * warps)
+    for t in range(tile):
+        for w in range(t, len(row), tile):
+            threads[t] = f(threads[t] + row[w])
+    sums = []
+    for wp in range(warps):
+        v = threads[32 * wp:32 * wp + 32]
+        for m in (16, 8, 4, 2, 1):
+            v = [f(v[i] + v[i ^ m]) for i in range(32)]
+        assert len(set(v)) == 1       # every lane holds the same float
+        sums.append(v[0])
+    h = warps // 2
+    while h:
+        sums = [f(sums[i] + sums[i + h]) for i in range(h)]
+        h //= 2
+    return sums[0]
+
+
+@pytest.mark.parametrize("K,R,width", [(4, 4, 200), (20, 4, 128),
+                                       (20, 4, 300), (20, 3, 352)])
+def test_team_site_sum_order(K, R, width):
+    """``team_site_sum`` adds a window's sites in the kernel's order: one
+    warp at K = 4 (lanes, then the butterfly); at K = 20 the team (a tile
+    of 32 x 8/R sites per pass, the butterfly, a tree over 8 warps);
+    bit for bit against the order written out, and within 1e-5 relative
+    of the f64 sum."""
+    tile, warps = ((32, 1) if K == 4
+                   else (32 * (bk.WIDE_TEAM // 32 // R), bk.WIDE_TEAM // 32))
+    rng = np.random.default_rng(K + R + width)
+    x = rng.random((3, width)).astype(np.float32) * 10
+    x[1, width // 2:] = 0.0           # a short span in a wide window
+    got = bk.team_site_sum(torch.as_tensor(x), tile, warps).numpy()
+    want = np.array([_team_sum_loop(r, tile, warps) for r in x])
+    np.testing.assert_array_equal(got, want)
+    exact = x.astype(np.float64).sum(axis=1)
+    np.testing.assert_allclose(got, exact, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", ["protein", "mixture", "pinv"])
+def test_wide_geometry(shape):
+    """The K = 20 team's geometry at the main paths' width (128 sites, R =
+    4): 256 threads a pair (two units each), one CTA and 8 warps an SM (a
+    team takes the register file), T within 227 KB of shared memory; and
+    the boundary past which T moves to the device-memory scratch."""
+    mix, pinv = shape == "mixture", shape == "pinv"
+    g = bk.wide_geometry(4, 128, mix, pinv)
+    assert g["threads"] == 256 and g["tile"] == 64
+    assert g["ctas_per_sm"] == 1 and g["warps_per_sm"] == 8
+    assert g["t_shared"]
+    tab = bk._tab_bytes(20, 4, mix)
+    assert g["shared_bytes"] == (tab + 2048 + (3072 + 32) * 4
+                                 + (80 + pinv) * 128 * 4)
+    assert g["shared_bytes"] == {"protein": 65408, "mixture": 75008,
+                                 "pinv": 65920}[shape]
+    shared = bk.max_shared_sites(80, pinv, 20, mix)
+    at = bk.wide_geometry(4, shared, mix, pinv)
+    assert at["t_shared"] and at["shared_bytes"] <= bk.SMEM_PER_BLOCK
+    assert at["ctas_per_sm"] == 1
+    dev = bk.wide_geometry(4, shared + 32, mix, pinv)
+    assert not dev["t_shared"]
+    assert dev["shared_bytes"] == tab + 2048 + (3072 + 32) * 4
+    assert dev["warps_per_sm"] == 8

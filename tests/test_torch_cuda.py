@@ -319,27 +319,13 @@ def mixture_registered():
     aa_matrices.MIXTURES.pop(MIXTURE, None)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("case", sorted(AA_CASES))
-@pytest.mark.parametrize("home", ["shared", "device"])
-def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
-    """The K = 20 instantiations (protein with one matrix, with +I on data
-    with 20% invariant columns, and a matrix mixture: per-rate tables, a
-    per-category tip) against their plain version on the card, the
-    sumtable in shared memory (width 256) and in device memory (past
-    max_shared_sites), with the counters; each launch counts in its
-    family."""
-    dev = _card()
+def _aa_state(dev, case, n_pairs=512, seed=10):
     pinv = case == "lg_pinv"
     eng, tQ, pe, pq, pb, sp, invq = _state(
-        dev, 512, seed=10, model=AA_CASES[case], n_taxa=16, data_seed=21,
-        with_invq=True, alphabet=AA, invariant=0.2 if pinv else 0.0)
+        dev, n_pairs, seed=seed, model=AA_CASES[case], n_taxa=16,
+        data_seed=21, with_invq=True, alphabet=AA,
+        invariant=0.2 if pinv else 0.0)
     blo = eng.blo
-    mix = case == "mixture"
-    RK = blo.tU.shape[1]
-    assert RK == 80 and tQ.shape[1] == (80 if mix else 20)
-    width = (256 if home == "shared"
-             else bk.max_shared_sites(RK, pinv, 20, mix) + 64)
     args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
             torch.zeros(len(pe), device=dev))
     tables = bk._kernel_scalars(eng.consts, torch.float32)
@@ -348,6 +334,43 @@ def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
         assert torch.isfinite(invq).any()
         kw = dict(invq=invq, ls=blo.ls,
                   omp=bk._omp(eng.consts, torch.float32))
+    return eng, tQ, args, tables, kw
+
+
+def _aa_width(home, case):
+    """The sumtable width that puts a K = 20 launch in ``home``: T in
+    shared memory at the main paths' width (128) and at the widest window
+    that keeps it there (max_shared_sites), or T in device memory (past
+    it). The library's geometry (the runtime's occupancy) matches
+    wide_geometry's."""
+    pinv, mix = case == "lg_pinv", case == "mixture"
+    shared = bk.max_shared_sites(80, pinv, 20, mix)
+    width = {"shared": 128, "widest": shared, "device": shared + 64}[home]
+    g = bk.wide_geometry(4, width, mix, pinv)
+    assert g["t_shared"] == (home != "device")
+    lib = bk.blo_newton.team_geometry(4, width, mix, pinv,
+                                      device_t=home == "device")
+    assert lib == {k: g[k] for k in lib}
+    return width
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(AA_CASES))
+@pytest.mark.parametrize("home", ["shared", "widest", "device"])
+def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
+    """The K = 20 instantiations (protein with one matrix, with +I on data
+    with 20% invariant columns, and a matrix mixture: per-rate tables, a
+    per-category tip) against their plain version on the card, bit for
+    bit (the plain version adds in the team's order), with the counters,
+    with T in shared memory (at the main paths' width and at the widest
+    window that fits) and in device memory; each launch counts in its
+    family."""
+    dev = _card()
+    pinv, mix = case == "lg_pinv", case == "mixture"
+    eng, tQ, args, tables, kw = _aa_state(dev, case)
+    RK = eng.blo.tU.shape[1]
+    assert RK == 80 and tQ.shape[1] == (80 if mix else 20)
+    width = _aa_width(home, case)
     family = "mixture_launches" if mix else "k20_launches"
     before = bk.blo_newton.counts()
     got = bk.blo_newton(tables, *args, width, counters=True, **kw)
@@ -355,10 +378,41 @@ def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
     after = bk.blo_newton.counts()
     assert after[family] == before[family] + 1
     assert after["pinv_launches"] == before["pinv_launches"] + pinv
-    _assert_matches_plain(got, tables, args, width, **kw)
     ref = bk.blo_newton_plain(tables, *args, width, counters=True, **kw)
+    assert (got[0] - ref[0]).abs().max().item() == 0.0
+    for k, r in zip(got[1:5], ref[1:5]):
+        assert torch.equal(k, r)
     for k, r in zip(got[5:], ref[5:]):
-        assert (k.long() == r).float().mean().item() >= 0.99
+        assert torch.equal(k.long(), r)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["lg", "mixture"])
+def test_aa_kernel_dead_slots(case, mixture_registered):
+    """The fused step hands the kernel mostly dead slots (skip): with 90%
+    of them dead, the live pairs' outputs and counters are the same as
+    with none dead, and every dead slot reports the frozen state
+    (logl 0, the default pendant, half the edge each side, done, no
+    work)."""
+    dev = _card()
+    eng, tQ, args, tables, kw = _aa_state(dev, case, n_pairs=1024, seed=12)
+    full = bk.blo_newton(tables, *args, 128, counters=True, **kw)
+    rng = np.random.default_rng(3)
+    dead = torch.as_tensor(rng.random(len(args[3])) < 0.9, device=dev)
+    some = bk.blo_newton(tables, *args[:-1], dead.float(), 128,
+                         counters=True, **kw)
+    torch.cuda.synchronize()
+    live = ~dead
+    assert 50 < int(live.sum()) < 200
+    for a, b in zip(full, some):
+        assert torch.equal(a[live], b[live])
+    orig = args[7][dead]
+    assert (some[0][dead] == 0).all()
+    assert (some[1][dead] == np.float32(tnewton.DEFAULT_PENDANT)).all()
+    assert torch.equal(some[2][dead], orig * 0.5)
+    assert torch.equal(some[3][dead], orig * 0.5)
+    assert (some[4][dead] == 1).all()
+    assert (some[5][dead] == 0).all() and (some[6][dead] == 0).all()
 
 
 @pytest.mark.requires_cuda
