@@ -1,8 +1,8 @@
 // Thorough-placement Newton branch-length optimisation for DNA (K = 4) and
 // protein (K = 20) models, single-matrix and matrix-mixture, on Hopper
 // (sm_90a): the pplacer smoothing loop of the trilinear eigenbasis form,
-// one warp per (query, edge) pair at K = 4, a team of 256 threads per pair
-// at K = 20.
+// one team of threads per (query, edge) pair in a persistent CTA: 128
+// threads at K = 4, 256 at K = 20.
 //
 // Replaces (epa_ng_tpu/ops/pallas_blo.py):
 //   _blo_kernel_blocked       (K1, the fused step's and the exact path's)
@@ -44,33 +44,65 @@
 // the TPU's ~five [RK, W, 128] tile sets (1 MB each at W = 128, RK = 16),
 // which do not fit the 227 KB of shared memory a block may use.
 //
-// DNA (K = 4, PairCtx, blo_newton_kernel), one warp per pair:
-//   * lanes stride over the window's sites, d1/d2 and the score are
-//     reduced with an xor-butterfly of shuffles, which leaves the
-//     bit-identical sum in every lane, so the whole warp takes the same
-//     Newton/smoothing branches with no barrier at all;
-//   * T lives in shared memory, [RK (+1)][width] floats per warp, reused
-//     for T1 and T2 (T1 is dead once the pendant solve is done); each lane
-//     only touches its own sites, so T needs no synchronisation either;
-//     the +I row pv is filled once per pair and read by every score and
-//     Newton iteration (the TPU path materialises an [NP, S] pinv_lin
-//     tensor instead);
-//   * tU/tV/tQ are re-read from device memory (L2) at each sumtable build,
+// Every pair iterates on its own: a finished pair's team takes the next
+// pair, no lock step across pairs (the TPU kernel freezes done lanes
+// instead). So the K5 counters are per pair: that pair's own executed
+// Newton iterations (both solves, all smoothings) and smoothings, where
+// the TPU kernel reports one count per 128-pair block, the lock-step trips
+// that the block's slowest lanes set.
+//
+// DNA (K = 4, DnaTeamCtx, blo_newton_dna_kernel). One warp per pair gave
+// each warp its own T of [RK (+1)][width] floats (16 KB at RK = 16, width
+// 256; 64 KB a block of four warps): 12 warps an SM to hide the shared
+// loads, the IEEE expf and divisions and the two butterflies of every
+// Newton iteration. A launch of the main path holds ~1,200 live pairs,
+// about one wave of such warps, so the slowest pairs' serial chains (a
+// few to a few hundred Newton iterations) set its time; a block kept its
+// 64 KB until its slowest pair ended; and every lane computed all RK
+// exponentials. So:
+//   * one CTA per pair, a team of DNA_TEAM = 128 threads (4 warps):
+//     thread t owns the window's sites t, t + 128, ... (two at width 256)
+//     and sums each site's RK eigen lanes in j order; the zero-eigenvalue
+//     lanes j == K-1 (mod K) (ops/eigen.py snaps that eigenvalue to
+//     exactly 0) skip their exp and their derivative terms, as
+//     _blo_compute does statically;
+//   * one T per CTA in shared memory up to max_shared_sites (2,880 sites
+//     at RK = 16, with or without +I), so registers, not T, set how many
+//     teams an SM holds. T is site-major, [width][TS]: a site's RK sums,
+//     rate r's four as float4 r, then the +I pv (filled once per pair),
+//     padded to TS = 4 mod 8 floats (20 at RK = 16), so 8 threads on 8
+//     consecutive sites read float4s from 32 distinct banks, and a rate's
+//     sums, exponentials and x_rk come in three 16-byte loads, not twelve
+//     loads and their address arithmetic (rows of a runtime stride were
+//     1-4% slower: PERF.md). Each thread reads and writes only
+//     its own sites, so T needs no barrier. Past max_shared_sites T goes
+//     to a device-memory scratch, one slice per CTA, where the rate loops
+//     stay rolled (unrolled, their float4 loads in flight spilled);
+//   * persistent CTAs: the grid is what the SMs hold at once, the tables
+//     are loaded once per CTA, and a CTA that finishes a pair takes the
+//     next untaken one from an atomic counter (a pair's work runs up to 3x
+//     the mean, and a grid-stride walk, as at K = 20, was 3-8% slower:
+//     PERF.md); a dead slot costs its skip flag and its frozen outputs;
+//   * each warp keeps its own row of the RK exponentials e^{x_j t}, lane j
+//     filling entry j once per evaluation (__syncwarp only), where every
+//     lane computed all RK; the sites read the row where they use it;
+//   * the SMs are bound by instruction issue, not by latency: 40% more
+//     CTAs (72 registers) bought 1.5%, and 72-102-register caps spilled
+//     and lost. Unbounded, ptxas hoists every rate's window loads to the
+//     head of a site (150-165 registers, 3 CTAs an SM); the shared home
+//     below R = 7 is capped at 128 (__launch_bounds__(128, 4): 4 CTAs),
+//     which a compiler barrier at every other rate of a build keeps free
+//     of spills; the Newton iteration reads x_j^2 from a table instead of
+//     multiplying (PERF.md);
+//   * sums: each thread over its sites, the warp's xor butterfly, then a
+//     fixed tree over the 4 warps through shared slots (team_sum; a Newton
+//     iteration's d1 and d2 in one reduction with one barrier), which
+//     leaves the same float in every thread, so the whole team takes the
+//     same Newton/smoothing branches;
+//   * tU/tV/tQ are re-read from L2 at each sumtable build (~5.7 a pair),
 //     coalesced along sites (the stores are site-last);
-//   * the exponential scale factors e^{x_j t} are per-pair scalars computed
-//     redundantly by every lane; the zero-eigenvalue lanes j == K-1 (mod K)
-//     (ops/eigen.py snaps that eigenvalue to exactly 0) skip their exp and
-//     their derivative terms, as _blo_compute does statically;
-//   * every pair iterates on its own: a finished pair's warp takes the
-//     next pair, no lock step across pairs (the TPU kernel freezes done
-//     lanes instead). So the K5 counters are per pair: that pair's own
-//     executed Newton iterations (both solves, all smoothings) and
-//     smoothings, where the TPU kernel reports one count per 128-pair
-//     block, the lock-step trips that the block's slowest lanes set.
-//   Windows too wide for shared memory ((RK (+1)) * width * 4 bytes of T
-//   per warp above ops/blo_kernel.py::max_shared_sites) keep T in a
-//   device-memory scratch instead, one slice per resident warp; the grid
-//   is then capped to the scratch's slices and each warp loops over pairs.
+//   * R stays a template parameter (the rate loops unrolled): 16 DNA
+//     instantiations a library (R 1-8 x home).
 //
 // Protein (K = 20, TeamCtx, blo_newton_team_kernel). A warp per pair held
 // four pairs of T (4 x 40 KB at RK = 80, width 128) in one block per SM:
@@ -103,7 +135,7 @@
 //     CTA. Staging the windows in shared memory once per pair (cp.async,
 //     92 KB more) was measured no faster than L2 on the main paths' pairs
 //     (PERF.md). Past max_shared_sites T goes to the device-memory
-//     scratch, one slice per CTA; ops/blo_kernel.py::wide_geometry and
+//     scratch, one slice per CTA; ops/blo_kernel.py::kernel_geometry and
 //     max_shared_sites mirror TeamLayout. The +I row pv is computed into
 //     T once per pair;
 //   * each warp keeps its own row of its rate's 20 exponentials (lane k
@@ -121,11 +153,11 @@
 // Built without --use_fast_math (tiny is FLT_MIN and the rollback test
 // |new| * 1e-14 must stay as written) and with -fmad=false: the kernel
 // then rounds every product and sum as its plain version
-// (ops/blo_kernel.py::blo_newton_plain, which repeats both reduction
-// orders) does and agrees with it on every pair, so a fault that touches a
-// few pairs still shows. It also caps every instantiation at half the
-// card's FMA rate: 2 x the operation bound at best. On the DNA main
-// path's pairs, mul+add contraction saves about 4% of the kernel's time,
+// (ops/blo_kernel.py::blo_newton_plain, which repeats both teams'
+// reduction orders) does and agrees with it bit for bit, so a fault that
+// touches a few pairs still shows. It also caps every instantiation at half
+// the card's FMA rate: 2 x the operation bound at best. On the DNA main
+// path's pairs, mul+add contraction saved about 4% of PR 1's kernel time,
 // and it parts from the plain version, in f32 and in f64 alike, by up to
 // a few logl units on about one pair in two thousand, where f32 is
 // borderline (``python3 chip_smoke.py --fmad-ab``; PERF.md).
@@ -158,12 +190,68 @@ constexpr float DEFAULT_PENDANT = 0.10536051565782628f;  // -log(0.9)
 constexpr float OPT_BRANCH_EPSILON = 1e-1f;
 constexpr float GAIN_EPSILON = 1e-2f;
 constexpr float D1_EPSILON = 1e-4f;
-// scalar tables at the head of shared memory: x_rk, wA, A, piA take
-// RK + RK*K + 2*K*K = 20*R + 32 floats, 192 at the widest instantiation
-// (R = 8); ops/blo_kernel.py::_TAB_BYTES must match
+// DNA scalar tables at the head of shared memory: x_rk, wA, A, piA and
+// x_rk^2 take RK + RK*K + 2*K*K + RK = 24*R + 32 floats, 224 at the
+// widest instantiation (R = 8); ops/blo_kernel.py::_tab_bytes must match
 constexpr int MAX_R = 8;
-constexpr int TAB_FLOATS = 192;
-static_assert(20 * MAX_R + 2 * K * K <= TAB_FLOATS, "scalar tables");
+constexpr int TAB_FLOATS = 224;
+static_assert(24 * MAX_R + 2 * K * K <= TAB_FLOATS, "scalar tables");
+
+// threads per pair: DNA_TEAM at K = 4, TEAM at K = 20
+// (ops/blo_kernel.py DNA_TEAM, WIDE_TEAM)
+constexpr int DNA_TEAM = 128;
+constexpr int DNA_WARPS = DNA_TEAM / WARP;
+constexpr int TEAM = 256;
+constexpr int TEAM_WARPS = TEAM / WARP;
+static_assert(K * MAX_R <= WARP, "a warp's lanes fill its exponential row");
+// K = 20: (site, rate) units whose partial sums one barrier publishes: a
+// chunk of RED_UNITS / R sites (RED_UNITS / TEAM tiles)
+constexpr int RED_UNITS = 512;
+static_assert(RED_UNITS % TEAM == 0, "a chunk holds whole tiles");
+constexpr int SMEM_LIMIT_FLOATS = 232448 / 4;  // 227 KB a block may use
+
+__host__ __device__ inline int round32(int n) { return (n + 31) / 32 * 32; }
+
+__host__ __device__ inline int wide_tab_floats(int ns, int R, bool mix) {
+  const int rk = R * ns;
+  return round32(rk + rk * ns + (mix ? 2 * rk * ns : 2 * ns * ns));
+}
+
+// K = 4: floats per site of T, which is site-major ([width][stride]): the
+// rows (RK sums, +I's pv), padded to 4 mod 8 floats, so that 8 threads on
+// 8 consecutive sites read float4s from 32 distinct banks
+__host__ __device__ constexpr int dna_t_stride(int rows) {
+  const int padded = (rows + 3) / 4 * 4;
+  return padded % 8 == 0 ? padded + 4 : padded;
+}
+
+// Shared memory of a CTA, in floats, each region on a 32-float boundary
+// (ops/blo_kernel.py::kernel_geometry must match):
+//   tables   x_rk [RK], wA [RK][NS], A and piA ([NS][NS], a mixture's
+//            [RK][NS]) and at K = 4 x_rk^2 [RK]: TAB_FLOATS at K = 4,
+//            wide_tab_floats at K = 20
+//   exps     two rows of 32 floats per warp: e^{x t}, the warp's RK (K = 4)
+//            or its rate's 20 (K = 20)
+//   red      K = 20: [2][3][RED_UNITS] per-unit partial sums, one buffer
+//            per chunk parity
+//   slots    [2][2][warps] warp sums, one buffer per reduction parity; at
+//            K = 4 then [2] ints, the next pair's index
+//   T        [RK (+1)][width] at K = 20, [width][dna_t_stride(RK (+1))]
+//            at K = 4                     (in t_scratch instead: GLOBAL_T)
+struct TeamLayout {
+  int exps, red, slots, t, t_end;
+  __host__ __device__ TeamLayout(int ns, int R, bool mix, bool pinv,
+                                 int width) {
+    const int rk = R * ns;
+    const int warps = ns == K ? DNA_WARPS : TEAM_WARPS;
+    exps = ns == K ? TAB_FLOATS : wide_tab_floats(ns, R, mix);
+    red = exps + warps * 2 * 32;
+    slots = red + (ns == K ? 0 : 2 * 3 * RED_UNITS);
+    t = slots + round32(2 * 2 * warps + (ns == K ? 2 : 0));
+    const int rows = rk + (pinv ? 1 : 0);
+    t_end = t + round32((ns == K ? dna_t_stride(rows) : rows) * width);
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: lane i adds v_i + v_{i^m}, lane i^m adds v_{i^m} + v_i,
@@ -175,9 +263,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int R, bool HAS_PINV>
-struct PairCtx {
+// N sums over a team of WARPS warps, returned in every thread: each
+// thread's value (its sites, in order), the warp's xor butterfly, then the
+// warps in a fixed tree (a[i] += a[i + h], h = WARPS/2 .. 1), every thread
+// reading the same slots (ops/blo_kernel.py::team_site_sum repeats it).
+// ``slots`` holds two buffers of [2][WARPS] that alternate (``sbuf``), so
+// one barrier per reduction suffices.
+template <int WARPS, int N>
+__device__ void team_sum(float (&v)[N], float* slots,
+                         int& sbuf, int tid) {
+  static_assert(N <= 2, "two sums a reduction");
+  float* s = slots + sbuf * 2 * WARPS;
+  sbuf ^= 1;
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
+  if (tid % WARP == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) s[n * WARPS + tid / WARP] = v[n];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float a[WARPS];
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) a[i] = s[n * WARPS + i];
+#pragma unroll
+    for (int h = WARPS / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
+    }
+    v[n] = a[0];
+  }
+}
+
+template <int R, bool HAS_PINV, bool GLOBAL_T>
+struct DnaTeamCtx {
   static constexpr int RK = R * K;
+  static constexpr int TS = dna_t_stride(RK + (HAS_PINV ? 1 : 0));
   const float* __restrict__ tu;  // tU row block of this pair's edge [RK, S]
   const float* __restrict__ tv;
   const float* __restrict__ tq;  // tQ row block of this pair's query [K, S]
@@ -186,171 +308,228 @@ struct PairCtx {
   int S;
   int begin;
   int span;
-  int width;                     // T row stride (>= span)
+  int tid;
   int lane;
+  int sbuf;                      // slot buffer of the next reduction
   float omp;                     // 1 - pinv (+I)
-  float* T;                      // [RK (+1)][width], this warp's slice
-  const float* xrk;              // [RK]      shared
-  const float* wA;               // [RK][K]   shared
-  const float* A;                // [K][K]    shared
-  const float* piA;              // [K][K]    shared
+  float* T;                      // [width][TS], this CTA's
+  float* E0;                     // [32] shared, this warp's exponential rows
+  float* E1;
+  float* slots;                  // [2][2][DNA_WARPS] shared
+  // shared, each on a 16-byte boundary (RK is a multiple of 4)
+  const float* xrk;              // [RK]
+  const float* x2;               // [RK] x_rk * x_rk
+  const float* wA;               // [RK][K]
+  const float* A;                // [K][K]
+  const float* piA;              // [K][K]
 
-  __device__ __forceinline__ void exps(float t, float* E) const {
+  // f(r) for the rates r = 0 .. R-1 in order: unrolled with T in shared
+  // memory; one at a time with T in device memory, where the unrolled
+  // rates' float4 loads in flight take every register and spill
+  template <class F>
+  __device__ __forceinline__ static void for_rates(F f) {
+    if constexpr (GLOBAL_T) {
+#pragma unroll 1
+      for (int r = 0; r < R; ++r) f(r);
+    } else {
 #pragma unroll
-    for (int j = 0; j < RK; ++j) {
-      E[j] = (j % K == K - 1) ? 1.0f : expf(xrk[j] * t);
+      for (int r = 0; r < R; ++r) f(r);
     }
   }
 
-  // h[i] = sum_k coef[i][k] * x[k] (sequential in k, as _blo_compute)
-  __device__ __forceinline__ void back(const float* coef, const float* x,
-                                       float* h) const {
+  // E[j] = exp(x_j t) (1 on the zero-eigenvalue lanes, never read) in
+  // this warp's row, lane j filling entry j. The first __syncwarp lets
+  // every lane finish reading the previous values, the second publishes
+  // the new ones. Rate r's four entries are float4 r.
+  __device__ __forceinline__ const float4* exps(float t, float* E) const {
+    __syncwarp();
+    if (lane < RK) {
+      E[lane] = (lane % K == K - 1) ? 1.0f : expf(xrk[lane] * t);
+    }
+    __syncwarp();
+    return reinterpret_cast<const float4*>(E);
+  }
+
+  // window site w of T: rate r's four sums are float4 r, the +I pv
+  // follows them
+  __device__ __forceinline__ float4* site(int w) const {
+    return reinterpret_cast<float4*>(T + w * TS);
+  }
+
+  // h[i] = sum_k coef[i][k] * x[k] (sequential in k, as _blo_compute),
+  // each row of coef one float4
+  __device__ __forceinline__ static void back(const float4* coef,
+                                              const float* x, float* h) {
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      float acc = coef[i * K] * x[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) acc += coef[i * K + k] * x[k];
+      const float4 c = coef[i];
+      float acc = c.x * x[0];
+      acc += c.y * x[1];
+      acc += c.z * x[2];
+      acc += c.w * x[3];
       h[i] = acc;
     }
   }
 
-  // T[r*K+k] = sum_i piA[i][k] * hA[i] * hB[i]
-  __device__ __forceinline__ float contract(const float* hA, const float* hB,
-                                            int k) const {
-    float acc = piA[k] * (hA[0] * hB[0]);
+  // (T[r*K+k])_k = sum_i piA[i][k] * hA[i] * hB[i] (sequential in i), each
+  // row of piA one float4
+  __device__ __forceinline__ float4 contract(const float* hA,
+                                             const float* hB) const {
+    const float4* p = reinterpret_cast<const float4*>(piA);
+    float4 c = p[0];
+    float h = hA[0] * hB[0];
+    float4 acc = make_float4(c.x * h, c.y * h, c.z * h, c.w * h);
 #pragma unroll
-    for (int i = 1; i < K; ++i) acc += piA[i * K + k] * (hA[i] * hB[i]);
+    for (int i = 1; i < K; ++i) {
+      c = p[i];
+      h = hA[i] * hB[i];
+      acc.x += c.x * h;
+      acc.y += c.y * h;
+      acc.z += c.z * h;
+      acc.w += c.w * h;
+    }
     return acc;
   }
 
-  // the +I row of T: pv = exp(invq - ls) over the pair's span, once per
-  // pair (one exponential of the difference, as the JAX package's
-  // parallel/mesh.py does; an invq of -inf gives 0). Never read beyond
-  // the span, like every other row.
+  // the +I entry of T: pv = exp(invq - ls) at the thread's sites of the
+  // span, once per pair (one exponential of the difference, as the JAX
+  // package's parallel/mesh.py does; an invq of -inf gives 0). Never read
+  // beyond the span, like every other entry.
   __device__ void fill_pv() {
-    for (int w = lane; w < span; w += WARP) {
+    for (int w = tid; w < span; w += DNA_TEAM) {
       const int s = begin + w;
-      T[RK * width + w] = expf(iq[s] - ls[s]);
+      T[w * TS + RK] = expf(iq[s] - ls[s]);
     }
   }
 
   // the site likelihood from the eigen-sum f at window site w
   __device__ __forceinline__ float site_g(float f, int w) const {
     if constexpr (HAS_PINV) {
-      return omp * f + T[RK * width + w];
+      return omp * f + T[w * TS + RK];
     } else {
       return f;
     }
   }
 
+  // rate r's four sums at site s: contract(wA-bt(a e^{x la}), A-bt(b
+  // e^{x lb})) * o, with a and b the rate's four rows (row stride S) and
+  // ea, eb its exponentials (the zero lane's not applied)
+  __device__ __forceinline__ float4 build_rate(const float* a,
+                                               const float* b,
+                                               const float* o, int s,
+                                               int r, float4 ea,
+                                               float4 eb) const {
+    float u[K], v[K], hU[K], hV[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u[k] = a[k * S + s];
+      v[k] = b[k * S + s];
+    }
+    u[0] *= ea.x;
+    u[1] *= ea.y;
+    u[2] *= ea.z;
+    v[0] *= eb.x;
+    v[1] *= eb.y;
+    v[2] *= eb.z;
+    back(reinterpret_cast<const float4*>(wA) + r * K, u, hU);
+    back(reinterpret_cast<const float4*>(A), v, hV);
+    const float4 c = contract(hU, hV);
+    return make_float4(c.x * o[0], c.y * o[1], c.z * o[2], c.w * o[3]);
+  }
+
   // pendant sumtable at edge lengths (lp, ld): T1 of _blo_compute.build_T
   __device__ void build_t1(float lp, float ld) {
-    float EU[RK], EV[RK];
-    exps(lp, EU);
-    exps(ld, EV);
-    for (int w = lane; w < span; w += WARP) {
+    const float4* EU = exps(lp, E0);
+    const float4* EV = exps(ld, E1);
+    for (int w = tid; w < span; w += DNA_TEAM) {
       const int s = begin + w;
       float q[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) q[k] = tq[k * S + s];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float u[K], v[K], hU[K], hV[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int j = r * K + k;
-          u[k] = tu[j * S + s];
-          v[k] = tv[j * S + s];
-          if (k != K - 1) {
-            u[k] *= EU[j];
-            v[k] *= EV[j];
-          }
-        }
-        back(wA + r * K * K, u, hU);
-        back(A, v, hV);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          T[(r * K + k) * width + w] = contract(hU, hV, k) * q[k];
-        }
-      }
+      float4* t = site(w);
+      for_rates([&](int r) {
+        // a barrier for the compiler only, at every other rate: it keeps
+        // ptxas from hoisting all R rates' window loads to the head of the
+        // site, which takes 150-165 registers (PERF.md)
+        if (r % 2 == 0) asm volatile("" ::: "memory");
+        t[r] = build_rate(tu + r * K * S, tv + r * K * S, q, s, r, EU[r],
+                          EV[r]);
+      });
     }
   }
 
   // distal sumtable: proximal CLV x pendant-scaled query tip, times tV
   __device__ void build_t2(float lprox, float lpend) {
-    float EU[RK], EQ[RK];
-    exps(lprox, EU);
-    exps(lpend, EQ);
-    for (int w = lane; w < span; w += WARP) {
+    const float4* EU = exps(lprox, E0);
+    const float4* EQ = exps(lpend, E1);
+    for (int w = tid; w < span; w += DNA_TEAM) {
       const int s = begin + w;
+      float4* t = site(w);
+      for_rates([&](int r) {
+        if (r % 2 == 0) asm volatile("" ::: "memory");
+        float o[K];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float u[K], q[K], hU[K], hQ[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int j = r * K + k;
-          u[k] = tu[j * S + s];
-          q[k] = tq[k * S + s];
-          if (k != K - 1) {
-            u[k] *= EU[j];
-            q[k] *= EQ[j];
-          }
-        }
-        back(wA + r * K * K, u, hU);
-        back(A, q, hQ);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int j = r * K + k;
-          T[j * width + w] = contract(hU, hQ, k) * tv[j * S + s];
-        }
-      }
+        for (int k = 0; k < K; ++k) o[k] = tv[(r * K + k) * S + s];
+        t[r] = build_rate(tu + r * K * S, tq, o, s, r, EU[r], EQ[r]);
+      });
     }
   }
 
-  // masked log-likelihood (scaled space) from T at pendant length lq
-  __device__ float score(float lq) const {
-    float E[RK];
-    exps(lq, E);
-    float acc = 0.0f;
-    for (int w = lane; w < span; w += WARP) {
+  // masked log-likelihood (scaled space) from T at pendant length lq; per
+  // site the RK lanes in j order, the zero lanes adding T alone
+  __device__ float score(float lq) {
+    const float4* E = exps(lq, E0);
+    float acc[1] = {0.0f};
+    for (int w = tid; w < span; w += DNA_TEAM) {
+      const float4* t = site(w);
       float f = 0.0f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float t = T[j * width + w];
-        f += (j % K == K - 1) ? t : t * E[j];
-      }
-      acc += logf(fmaxf(site_g(f, w), FLT_MIN));
+      for_rates([&](int r) {
+        const float4 tr = t[r], e = E[r];
+        f += tr.x * e.x;
+        f += tr.y * e.y;
+        f += tr.z * e.z;
+        f += tr.w;
+      });
+      acc[0] += logf(fmaxf(site_g(f, w), FLT_MIN));
     }
-    return warp_sum(acc);
+    team_sum<DNA_WARPS>(acc, slots, sbuf, tid);
+    return acc[0];
+  }
+
+  // a non-zero lane's terms of f0, f1, f2 (x2 = x * x)
+  __device__ __forceinline__ static void lane_terms(float t, float e,
+                                                    float x, float x2,
+                                                    float& f0, float& f1,
+                                                    float& f2) {
+    const float tE = t * e;
+    f0 += tE;
+    f1 += tE * x;
+    f2 += tE * x2;
   }
 
   // safeguarded Newton on dlogl/dt over T (see _blo_compute.newton);
   // adds the iterations it executes to ``iters``
   __device__ float newton(float xmin, float xmax, float xtol, float guess,
-                          int& iters) const {
+                          int& iters) {
+    const float4* X = reinterpret_cast<const float4*>(xrk);
+    const float4* X2 = reinterpret_cast<const float4*>(x2);
     float x = fminf(fmaxf(guess, xmin), xmax);
     float slid = 0.0f;
     bool done = false;
     for (int it = 0; it < MAX_ITERS && !done; ++it) {
       ++iters;
-      float E[RK];
-      exps(x, E);
-      float d1p = 0.0f, d2p = 0.0f;
-      for (int w = lane; w < span; w += WARP) {
+      const float4* E = exps(x, E0);
+      float d[2] = {0.0f, 0.0f};
+      for (int w = tid; w < span; w += DNA_TEAM) {
+        const float4* t = site(w);
         float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < RK; ++j) {
-          const float t = T[j * width + w];
-          if (j % K == K - 1) {
-            f0 += t;  // zero-eigenvalue lane: x_j == 0 exactly
-          } else {
-            const float xj = xrk[j];
-            const float tE = t * E[j];
-            f0 += tE;
-            f1 += tE * xj;
-            f2 += tE * (xj * xj);
-          }
-        }
+        for_rates([&](int r) {
+          const float4 tr = t[r], e = E[r], xr = X[r], xx = X2[r];
+          lane_terms(tr.x, e.x, xr.x, xx.x, f0, f1, f2);
+          lane_terms(tr.y, e.y, xr.y, xx.y, f0, f1, f2);
+          lane_terms(tr.z, e.z, xr.z, xx.z, f0, f1, f2);
+          f0 += tr.w;  // zero-eigenvalue lane: x_j == 0 exactly
+        });
         // +I: g = omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2, in
         // _blo_compute's order of operations
         const float g = fmaxf(site_g(f0, w), FLT_MIN);
@@ -360,11 +539,12 @@ struct PairCtx {
           f2 = omp * f2;
         }
         const float r1 = f1 * inv_g;
-        d1p += r1;
-        d2p += f2 * inv_g - r1 * r1;
+        d[0] += r1;
+        d[1] += f2 * inv_g - r1 * r1;
       }
-      const float d1 = warp_sum(d1p);
-      const float d2 = warp_sum(d2p);
+      team_sum<DNA_WARPS>(d, slots, sbuf, tid);
+      const float d1 = d[0];
+      const float d2 = d[1];
       const float newton_x = x - d1 / (d2 == 0.0f ? 1.0f : d2);
       const float dirn = d1 > 0.0f ? 1.0f : -1.0f;
       const bool snap = (d2 >= 0.0f) && (slid * dirn > 0.0f);
@@ -383,9 +563,9 @@ struct PairCtx {
 };
 
 // out: logl, pendant, distal, proximal, done; counts: smoothings, Newton
-// iterations executed by this pair. Ctx is PairCtx (DNA, one warp) or
-// TeamCtx (K = 20, a team of TEAM threads; every thread returns the same
-// values, its sums being the team's).
+// iterations executed by this pair. Ctx is DnaTeamCtx (K = 4) or TeamCtx
+// (K = 20); every thread of the team returns the same values, its sums
+// being the team's.
 template <bool HAS_PINV, class Ctx>
 __device__ void solve_pair(const Ctx& c_in, float orig, int max_smoothings,
                            float* out, int* counts) {
@@ -440,65 +620,81 @@ __device__ void solve_pair(const Ctx& c_in, float orig, int max_smoothings,
   counts[1] = iters;
 }
 
-// GLOBAL_T: T in t_scratch (one [RK (+1)][width] slice per warp of the
-// grid) rather than in shared memory
+// K = 4 with R rate categories: CTA b takes pair b first (the grid is what
+// the SMs hold at once), then the next untaken pair, gridDim.x +
+// atomicAdd(next_pair, 1), until none is left, every thread of the team
+// holding the same p. ``next_pair`` is 0 at launch. GLOBAL_T: T in
+// t_scratch, one slice per CTA. At most 128 registers a thread with T in
+// shared memory below R = 7 (4 CTAs an SM); R = 7-8 and the device home
+// take what they need, without spill.
 template <int R, bool GLOBAL_T, bool HAS_PINV>
-__global__ void __launch_bounds__(128)
-blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
-                  const float* __restrict__ tQ, int S,
-                  const float* __restrict__ invq,
-                  const float* __restrict__ ls,
-                  const float* __restrict__ omp,
-                  const int* __restrict__ e_ids, const int* __restrict__ q_ids,
-                  const int* __restrict__ begins,
-                  const int* __restrict__ spans,
-                  const float* __restrict__ orig_len,
-                  const float* __restrict__ skip,
-                  const float* __restrict__ x_rk,
-                  const float* __restrict__ wA, const float* __restrict__ A,
-                  const float* __restrict__ piA, int P, int width,
-                  int max_smoothings, float* __restrict__ t_scratch,
-                  float* __restrict__ out_logl,
-                  float* __restrict__ out_pendant,
-                  float* __restrict__ out_distal,
-                  float* __restrict__ out_proximal,
-                  float* __restrict__ out_done,
-                  int* __restrict__ out_smoothings,
-                  int* __restrict__ out_iters) {
+__global__ void __launch_bounds__(DNA_TEAM, GLOBAL_T || R > 6 ? 1 : 4)
+blo_newton_dna_kernel(const float* __restrict__ tU,
+                      const float* __restrict__ tV,
+                      const float* __restrict__ tQ, int S,
+                      const float* __restrict__ invq,
+                      const float* __restrict__ ls,
+                      const float* __restrict__ omp,
+                      const int* __restrict__ e_ids,
+                      const int* __restrict__ q_ids,
+                      const int* __restrict__ begins,
+                      const int* __restrict__ spans,
+                      const float* __restrict__ orig_len,
+                      const float* __restrict__ skip,
+                      const float* __restrict__ x_rk,
+                      const float* __restrict__ wA,
+                      const float* __restrict__ A,
+                      const float* __restrict__ piA, int P, int width,
+                      int max_smoothings, float* __restrict__ t_scratch,
+                      int* __restrict__ next_pair,
+                      float* __restrict__ out_logl,
+                      float* __restrict__ out_pendant,
+                      float* __restrict__ out_distal,
+                      float* __restrict__ out_proximal,
+                      float* __restrict__ out_done,
+                      int* __restrict__ out_smoothings,
+                      int* __restrict__ out_iters) {
   constexpr int RK = R * K;
-  constexpr int ROWS = RK + (HAS_PINV ? 1 : 0);
   static_assert(R <= MAX_R, "rate categories");
-  extern __shared__ float smem[];
+  const TeamLayout L(K, R, false, HAS_PINV, width);
+  extern __shared__ __align__(16) float dna_smem[];
+  float* smem = dna_smem;
   float* s_x = smem;                 // [RK]
   float* s_wA = s_x + RK;            // [RK * K]
   float* s_A = s_wA + RK * K;        // [K * K]
   float* s_piA = s_A + K * K;        // [K * K]
-  for (int i = threadIdx.x; i < RK; i += blockDim.x) s_x[i] = x_rk[i];
-  for (int i = threadIdx.x; i < RK * K; i += blockDim.x) s_wA[i] = wA[i];
-  for (int i = threadIdx.x; i < K * K; i += blockDim.x) {
+  float* s_x2 = s_piA + K * K;       // [RK]
+  for (int i = threadIdx.x; i < RK; i += DNA_TEAM) {
+    s_x[i] = x_rk[i];
+    s_x2[i] = x_rk[i] * x_rk[i];
+  }
+  for (int i = threadIdx.x; i < RK * K; i += DNA_TEAM) s_wA[i] = wA[i];
+  for (int i = threadIdx.x; i < K * K; i += DNA_TEAM) {
     s_A[i] = A[i];
     s_piA[i] = piA[i];
   }
   __syncthreads();
 
-  const int warps = blockDim.x / WARP;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const size_t slot = static_cast<size_t>(blockIdx.x) * warps + warp;
-
-  PairCtx<R, HAS_PINV> c;
+  const int tid = threadIdx.x;
+  DnaTeamCtx<R, HAS_PINV, GLOBAL_T> c;
   c.S = S;
-  c.width = width;
-  c.lane = lane;
+  c.tid = tid;
+  c.lane = tid % WARP;
   c.omp = HAS_PINV ? omp[0] : 1.0f;
   c.iq = nullptr;
   c.ls = nullptr;
+  c.E0 = smem + L.exps + (tid / WARP) * 64;
+  c.E1 = c.E0 + 32;
+  c.slots = smem + L.slots;
+  // the next pair's index, two buffers (after the warp slots)
+  int* s_next = reinterpret_cast<int*>(smem + L.slots + 2 * 2 * DNA_WARPS);
   if constexpr (GLOBAL_T) {
-    c.T = t_scratch + slot * ROWS * width;
+    c.T = t_scratch + static_cast<size_t>(blockIdx.x) * c.TS * width;
   } else {
-    c.T = smem + TAB_FLOATS + static_cast<size_t>(warp) * ROWS * width;
+    c.T = smem + L.t;
   }
   c.xrk = s_x;
+  c.x2 = s_x2;
   c.wA = s_wA;
   c.A = s_A;
   c.piA = s_piA;
@@ -506,8 +702,7 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
   // grid, so it costs no divergence
   const bool count = out_iters != nullptr;
 
-  // warp-uniform loop: every lane of a warp holds the same p
-  for (int p = static_cast<int>(slot); p < P; p += gridDim.x * warps) {
+  for (int p = blockIdx.x, i = 0; p < P; ++i) {
     const float orig = orig_len[p];
     float out[5];
     int counts[2] = {0, 0};
@@ -530,9 +725,10 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
       }
       c.begin = max(begins[p], 0);
       c.span = min(min(spans[p], width), S - c.begin);
+      c.sbuf = 0;
       solve_pair<HAS_PINV>(c, orig, max_smoothings, out, counts);
     }
-    if (lane == 0) {
+    if (tid == 0) {
       out_logl[p] = out[0];
       out_pendant[p] = out[1];
       out_distal[p] = out[2];
@@ -542,7 +738,12 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
         out_smoothings[p] = counts[0];
         out_iters[p] = counts[1];
       }
+      s_next[i & 1] = gridDim.x + atomicAdd(next_pair, 1);
     }
+    // publishes the next pair; it also keeps the next pair's first
+    // reduction from writing slots that a thread still reads
+    __syncthreads();
+    p = s_next[i & 1];
   }
 }
 
@@ -550,44 +751,6 @@ blo_newton_kernel(const float* __restrict__ tU, const float* __restrict__ tV,
 // K = 20 (protein), one substitution matrix or a matrix mixture (LG4M/LG4X):
 // a team of TEAM threads per pair in one persistent CTA (the design is in
 // the header).
-//
-// Shared memory of a CTA, in floats, each region on a 32-float boundary
-// (TeamLayout; ops/blo_kernel.py::wide_geometry must match):
-//   tables   x_rk [RK], wA [RK][NS], A and piA ([NS][NS], a mixture's
-//            [RK][NS])                                 wide_tab_floats
-//   exps     two rows of 32 floats per warp: e^{x t} of the warp's rate
-//   red      [2][3][RED_UNITS] per-unit partial sums, one buffer per chunk
-//            parity
-//   slots    [2][2][TEAM_WARPS] warp sums, one buffer per reduction parity
-//   T        [RK (+1)][width]             (in t_scratch instead: GLOBAL_T)
-
-constexpr int TEAM = 256;
-constexpr int TEAM_WARPS = TEAM / WARP;
-// (site, rate) units whose partial sums one barrier publishes: a chunk of
-// RED_UNITS / R sites (RED_UNITS / TEAM tiles)
-constexpr int RED_UNITS = 512;
-static_assert(RED_UNITS % TEAM == 0, "a chunk holds whole tiles");
-constexpr int SMEM_LIMIT_FLOATS = 232448 / 4;  // 227 KB a block may use
-
-__host__ __device__ inline int round32(int n) { return (n + 31) / 32 * 32; }
-
-__host__ __device__ inline int wide_tab_floats(int ns, int R, bool mix) {
-  const int rk = R * ns;
-  return round32(rk + rk * ns + (mix ? 2 * rk * ns : 2 * ns * ns));
-}
-
-struct TeamLayout {
-  int exps, red, slots, t, t_end;
-  __host__ __device__ TeamLayout(int ns, int R, bool mix, bool pinv,
-                                 int width) {
-    const int rk = R * ns;
-    exps = wide_tab_floats(ns, R, mix);
-    red = exps + TEAM_WARPS * 2 * 32;
-    slots = red + 2 * 3 * RED_UNITS;
-    t = slots + round32(2 * 2 * TEAM_WARPS);
-    t_end = t + round32((rk + (pinv ? 1 : 0)) * width);
-  }
-};
 
 template <int NS, bool MIX, bool HAS_PINV>
 struct TeamCtx {
@@ -703,36 +866,6 @@ struct TeamCtx {
     build<true>(lprox, lpend);
   }
 
-  // N sums over the team, returned in every thread: each thread's value
-  // (its sites, in tile order), the warp's xor butterfly, then the warps in
-  // a fixed tree (a[i] += a[i + h], h = TEAM_WARPS/2 .. 1), every thread
-  // reading the same slots. The slots alternate between two buffers, so
-  // one barrier per reduction suffices.
-  template <int N>
-  __device__ void team_sum(float (&v)[N]) {
-    float* s = slots + sbuf * 2 * TEAM_WARPS;
-    sbuf ^= 1;
-#pragma unroll
-    for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
-    if (lane == 0) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) s[n * TEAM_WARPS + tid / WARP] = v[n];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      float a[TEAM_WARPS];
-#pragma unroll
-      for (int i = 0; i < TEAM_WARPS; ++i) a[i] = s[n * TEAM_WARPS + i];
-#pragma unroll
-      for (int h = TEAM_WARPS / 2; h > 0; h >>= 1) {
-#pragma unroll
-        for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
-      }
-      v[n] = a[0];
-    }
-  }
-
   // masked log-likelihood (scaled space) from T at pendant length lq: per
   // chunk, each unit's sum over its 20 eigen lanes (k order) into red, a
   // barrier, then thread t adds the rates of its sites t, t + tile, ... in
@@ -765,7 +898,7 @@ struct TeamCtx {
         }
       }
     }
-    team_sum(acc);
+    team_sum<TEAM_WARPS>(acc, slots, sbuf, tid);
     return acc[0];
   }
 
@@ -836,7 +969,7 @@ struct TeamCtx {
           }
         }
       }
-      team_sum(d);
+      team_sum<TEAM_WARPS>(d, slots, sbuf, tid);
       const float d1 = d[0];
       const float d2 = d[1];
       const float newton_x = x - d1 / (d2 == 0.0f ? 1.0f : d2);
@@ -1000,9 +1133,9 @@ struct Args {
   int P;
   int width;
   int max_smoothings;
-  int pairs_per_block;
   int blocks;
   float* t_scratch;
+  int* next_pair;
   float* logl;
   float* pendant;
   float* distal;
@@ -1013,63 +1146,80 @@ struct Args {
   int num_rates;
 };
 
-template <int R, bool GLOBAL_T, bool HAS_PINV>
-int launch_as(const Args& a, cudaStream_t stream) {
-  constexpr int ROWS = R * K + (HAS_PINV ? 1 : 0);
-  const size_t t_floats =
-      GLOBAL_T ? 0 : static_cast<size_t>(a.pairs_per_block) * ROWS * a.width;
-  const size_t smem = sizeof(float) * (TAB_FLOATS + t_floats);
-  cudaError_t err = cudaFuncSetAttribute(
-      blo_newton_kernel<R, GLOBAL_T, HAS_PINV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  blo_newton_kernel<R, GLOBAL_T, HAS_PINV>
-      <<<a.blocks, WARP * a.pairs_per_block, smem, stream>>>(
-          a.tU, a.tV, a.tQ, a.S, a.invq, a.ls, a.omp, a.e_ids, a.q_ids,
-          a.begins, a.spans, a.orig_len, a.skip, a.x_rk, a.wA, a.A, a.piA,
-          a.P, a.width, a.max_smoothings, a.t_scratch, a.logl, a.pendant,
-          a.distal, a.proximal, a.done, a.smoothings, a.iters);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int R>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
-  if (a.t_scratch != nullptr) return launch_as<R, true, HAS_PINV>(a, stream);
-  return launch_as<R, false, HAS_PINV>(a, stream);
-}
-
-// Sets the instantiation's shared memory, reads how many of its CTAs an SM
-// holds (the runtime's occupancy) and, with ``a``, launches that many
-// persistent CTAs per SM (never more than ``blocks``, the pairs or the
-// device-memory scratch's slices). geo = {threads per CTA, CTAs per SM,
-// dynamic shared bytes, T in shared memory}.
-template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV>
-int launch_team_as(const Args* a, int smem_floats, int* geo,
-                   cudaStream_t stream) {
-  const auto kernel = blo_newton_team_kernel<NS, MIX, GLOBAL_T, HAS_PINV>;
+// Sets the kernel's shared memory and reads how many of its CTAs an SM
+// holds (the runtime's occupancy): geo = {threads per CTA, CTAs per SM,
+// dynamic shared bytes, T in shared memory, registers per thread}; with
+// ``a``, ``grid`` is that many persistent CTAs per SM, never more than
+// ``blocks`` (the pairs or the device-memory scratch's slices).
+template <class Kernel>
+int persistent_grid(Kernel kernel, int threads, bool global_t,
+                    const Args* a, int smem_floats, int* geo, int* grid) {
   const int smem = smem_floats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        TEAM, smem);
+                                                        threads, smem);
   }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  geo[0] = TEAM;
+  geo[0] = threads;
   geo[1] = per_sm;
   geo[2] = smem;
-  geo[3] = GLOBAL_T ? 0 : 1;
+  geo[3] = global_t ? 0 : 1;
+  geo[4] = attr.numRegs;
   if (a == nullptr) return 0;
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int grid = std::max(1, std::min(a->blocks, per_sm * sms));
-  kernel<<<grid, TEAM, smem, stream>>>(
+  *grid = std::max(1, std::min(a->blocks, per_sm * sms));
+  return 0;
+}
+
+// the sumtable's home: shared memory where T fits, else (``device_t``: a
+// t_scratch given) device memory; with ``a`` null only geo is filled
+template <int R>
+int launch_dna(const Args* a, int width, bool device_t, int* geo,
+               cudaStream_t stream) {
+  constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
+  const TeamLayout L(K, R, false, HAS_PINV, width);
+  if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
+  const auto kernel = device_t ? blo_newton_dna_kernel<R, true, HAS_PINV>
+                               : blo_newton_dna_kernel<R, false, HAS_PINV>;
+  const int smem_floats = device_t ? L.t : L.t_end;
+  int grid = 0;
+  const int rc = persistent_grid(kernel, DNA_TEAM, device_t, a, smem_floats,
+                                 geo, &grid);
+  if (rc != 0 || a == nullptr) return rc;
+  kernel<<<grid, DNA_TEAM, smem_floats * sizeof(float), stream>>>(
+      a->tU, a->tV, a->tQ, a->S, a->invq, a->ls, a->omp, a->e_ids, a->q_ids,
+      a->begins, a->spans, a->orig_len, a->skip, a->x_rk, a->wA, a->A,
+      a->piA, a->P, a->width, a->max_smoothings, a->t_scratch, a->next_pair,
+      a->logl, a->pendant, a->distal, a->proximal, a->done, a->smoothings,
+      a->iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MIX>
+int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
+                cudaStream_t stream) {
+  constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
+  const TeamLayout L(20, R, MIX, HAS_PINV, width);
+  if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
+  const auto kernel =
+      device_t ? blo_newton_team_kernel<20, MIX, true, HAS_PINV>
+               : blo_newton_team_kernel<20, MIX, false, HAS_PINV>;
+  const int smem_floats = device_t ? L.t : L.t_end;
+  int grid = 0;
+  const int rc = persistent_grid(kernel, TEAM, device_t, a, smem_floats, geo,
+                                 &grid);
+  if (rc != 0 || a == nullptr) return rc;
+  kernel<<<grid, TEAM, smem_floats * sizeof(float), stream>>>(
       a->tU, a->tV, a->tQ, a->S, a->num_rates, a->invq, a->ls, a->omp,
       a->e_ids, a->q_ids, a->begins, a->spans, a->orig_len, a->skip,
       a->x_rk, a->wA, a->A, a->piA, a->P, a->width, a->max_smoothings,
@@ -1078,33 +1228,32 @@ int launch_team_as(const Args* a, int smem_floats, int* geo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the sumtable's home: shared memory where T fits, else (``device_t``: a
-// t_scratch given) device memory; with ``a`` null only geo is filled
-template <bool MIX>
-int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
-                cudaStream_t stream) {
-  constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
-  const TeamLayout L(20, R, MIX, HAS_PINV, width);
-  if (device_t) {
-    return launch_team_as<20, MIX, true, HAS_PINV>(a, L.t, geo, stream);
-  }
-  if (L.t_end <= SMEM_LIMIT_FLOATS) {
-    return launch_team_as<20, MIX, false, HAS_PINV>(a, L.t_end, geo,
-                                                    stream);
-  }
-  return -3;
-}
-
-int blo_newton_team(const Args* a, int R, int mixture, int width,
-                    bool device_t, int* geo, cudaStream_t stream) {
-  if (mixture) {
+int blo_newton_team(const Args* a, int num_states, int R, int mixture,
+                    int width, bool device_t, int* geo,
+                    cudaStream_t stream) {
+  if (R < 1 || R > MAX_R || width < 1) return -1;
+  if (num_states == 20) {
+    if (mixture) {
 #if BLO_HAS_PINV
-    return -1;  // no +I with a matrix mixture
+      return -1;  // no +I with a matrix mixture
 #else
-    return launch_team<true>(a, R, width, device_t, geo, stream);
+      return launch_team<true>(a, R, width, device_t, geo, stream);
 #endif
+    }
+    return launch_team<false>(a, R, width, device_t, geo, stream);
   }
-  return launch_team<false>(a, R, width, device_t, geo, stream);
+  if (num_states != K || mixture) return -1;
+  switch (R) {
+    case 1: return launch_dna<1>(a, width, device_t, geo, stream);
+    case 2: return launch_dna<2>(a, width, device_t, geo, stream);
+    case 3: return launch_dna<3>(a, width, device_t, geo, stream);
+    case 4: return launch_dna<4>(a, width, device_t, geo, stream);
+    case 5: return launch_dna<5>(a, width, device_t, geo, stream);
+    case 6: return launch_dna<6>(a, width, device_t, geo, stream);
+    case 7: return launch_dna<7>(a, width, device_t, geo, stream);
+    case 8: return launch_dna<8>(a, width, device_t, geo, stream);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -1115,14 +1264,13 @@ extern "C" {
 // and mixture (per-rate A/piA [RK][K] and tQ [Q, RK, S]; K = 20 only, and
 // not in the +I library) select the instantiation, RK = num_states *
 // num_rates; -1 means an unsupported combination, -2 a missing +I input,
-// -3 a K = 20 sumtable too wide for shared memory without a t_scratch.
-// DNA: blocks of pairs_per_block warps; t_scratch is null for T in shared
-// memory, else blocks * pairs_per_block slices of [RK (+1)][width] floats
-// in device memory. K = 20: pairs_per_block is not read; at most
-// ``blocks`` persistent CTAs, and t_scratch is null (T in shared memory)
-// or holds ``blocks`` such slices. invq [Q, S], ls
-// [E, S] and omp [1] are read only by the +I library; smoothings and
-// iters [P] are both null (no counters) or both set.
+// -3 a sumtable too wide for shared memory without a t_scratch. At most
+// ``blocks`` persistent CTAs; t_scratch is null (T in shared memory) or
+// holds ``blocks`` slices of [RK (+1)][width] floats in device memory.
+// next_pair [1] is the K = 4 kernel's pair counter, 0 at launch (the
+// K = 20 kernel walks its pairs by grid stride and reads no counter).
+// invq [Q, S], ls [E, S] and omp [1] are read only by the +I library;
+// smoothings and iters [P] are both null (no counters) or both set.
 int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
                       int S, int num_states, int num_rates, int mixture,
                       const float* invq,
@@ -1131,7 +1279,7 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
                       const float* orig_len, const float* skip,
                       const float* x_rk, const float* wA, const float* A,
                       const float* piA, int P, int width, int max_smoothings,
-                      int pairs_per_block, int blocks, float* t_scratch,
+                      int blocks, float* t_scratch, int* next_pair,
                       float* logl, float* pendant, float* distal,
                       float* proximal, float* done, int* smoothings,
                       int* iters, void* stream) {
@@ -1139,44 +1287,29 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
   if (BLO_HAS_PINV && (invq == nullptr || ls == nullptr || omp == nullptr)) {
     return -2;
   }
+  if (num_states == K && next_pair == nullptr) return -2;
   if ((smoothings == nullptr) != (iters == nullptr)) return -2;
   const Args a{tU,     tV,      tQ,     S,       invq,           ls,
                omp,    e_ids,   q_ids,  begins,  spans,          orig_len,
                skip,   x_rk,    wA,     A,       piA,            P,
-               width,  max_smoothings,  pairs_per_block,         blocks,
-               t_scratch,       logl,   pendant, distal,         proximal,
-               done,   smoothings,      iters,  num_rates};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_rates < 1 || num_rates > MAX_R) return -1;
-  if (num_states == 20) {
-    int geo[4];
-    return blo_newton_team(&a, num_rates, mixture, width,
-                           t_scratch != nullptr, geo, st);
-  }
-  if (num_states != K || mixture) return -1;
-  switch (num_rates) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 3: return launch<3>(a, st);
-    case 4: return launch<4>(a, st);
-    case 5: return launch<5>(a, st);
-    case 6: return launch<6>(a, st);
-    case 7: return launch<7>(a, st);
-    case 8: return launch<8>(a, st);
-    default: return -1;
-  }
+               width,  max_smoothings,  blocks,  t_scratch,      next_pair,
+               logl,   pendant, distal, proximal, done,          smoothings,
+               iters,  num_rates};
+  int geo[5];
+  return blo_newton_team(&a, num_states, num_rates, mixture, width,
+                         t_scratch != nullptr, geo,
+                         static_cast<cudaStream_t>(stream));
 }
 
-// The geometry a K = 20 launch at this rate count, mixture flag and width
-// takes (device_t: with a t_scratch), as the launcher reads it from the
-// runtime: geo[4] = {threads per CTA, CTAs per SM, dynamic shared bytes,
-// 1 if T is in shared memory}. Returns 0 or an error code as
-// blo_newton_launch does.
-int blo_newton_team_geometry(int num_rates, int mixture, int width,
-                             int device_t, int* geo) {
-  if (num_rates < 1 || num_rates > MAX_R || width < 1) return -1;
-  return blo_newton_team(nullptr, num_rates, mixture, width, device_t != 0,
-                         geo, nullptr);
+// The geometry a launch at this state count, rate count, mixture flag and
+// width takes (device_t: with a t_scratch), as the launcher reads it from
+// the runtime: geo[5] = {threads per CTA, CTAs per SM, dynamic shared
+// bytes, 1 if T is in shared memory, registers per thread}. Returns 0 or
+// an error code as blo_newton_launch does.
+int blo_newton_team_geometry(int num_states, int num_rates, int mixture,
+                             int width, int device_t, int* geo) {
+  return blo_newton_team(nullptr, num_states, num_rates, mixture, width,
+                         device_t != 0, geo, nullptr);
 }
 
 const char* blo_newton_error_string(int code) {
@@ -1184,10 +1317,12 @@ const char* blo_newton_error_string(int code) {
     return "unsupported state count, rate count or mixture (4 or 20 "
            "states, 1-8 rates, mixtures at 20 states without +I)";
   }
-  if (code == -2) return "missing +I input or counter output";
+  if (code == -2) {
+    return "missing +I input, counter output or K = 4 pair counter";
+  }
   if (code == -3) {
-    return "the K = 20 sumtable does not fit shared memory at this width "
-           "(pass a device-memory scratch)";
+    return "the sumtable does not fit shared memory at this width (pass a "
+           "device-memory scratch)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

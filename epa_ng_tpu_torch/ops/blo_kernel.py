@@ -45,9 +45,9 @@ Wrappers with the JAX package's call shapes:
 Both take ``counters`` (K5's executed smoothings and Newton iterations,
 per pair). The kernel takes a window of any width: its sumtable sits in
 shared memory up to :func:`max_shared_sites` and in device memory beyond,
-so the engine never needs the TPU path's windowed fallbacks. DNA runs one
-warp per pair; K = 20 a team of ``WIDE_TEAM`` threads per pair in one
-persistent CTA (:func:`wide_geometry`).
+so the engine never needs the TPU path's windowed fallbacks. Each pair runs
+on a team of threads in one persistent CTA, ``DNA_TEAM`` at K = 4 and
+``WIDE_TEAM`` at K = 20 (:func:`kernel_geometry`).
 """
 
 from __future__ import annotations
@@ -70,23 +70,22 @@ from epa_ng_tpu_torch.ops.newton import (BRLEN_DEFAULT, BRLEN_MAX, BRLEN_MIN,
 K_STATES = (4, 20)  # DNA and protein instantiations of the kernel
 MAX_RATES = 8       # rate categories the kernel takes (csrc/blo_newton.cu)
 PB = 128            # pair-padding granule of the engine's control flow
-# DNA: the per-pair sumtable T ([RK, width] f32 per warp) lives in shared
-# memory up to 96 KB, which keeps at least two pairs resident per H100 SM
-# (227 KB usable per block): 1536-site windows at RK = 16. Wider windows
-# keep T in a device-memory scratch of at most T_SCRATCH_BYTES, one slice
-# per resident warp, each warp looping over pairs.
-MAX_RK_SITES = 24576
-MAX_SHARED_SITES = 1536
+# threads per pair, one persistent CTA each (csrc/blo_newton.cu DNA_TEAM,
+# TEAM): K = 4 and K = 20. A CTA keeps one pair's sumtable T ([RK (+1),
+# width] f32) in shared memory where it fits beside the CTA's tables,
+# exponential rows and reduction buffers (227 KB usable per block), and in
+# a device-memory scratch of at most T_SCRATCH_BYTES beyond, one slice per
+# CTA. At K = 20 one barrier publishes the partial sums of RED_UNITS
+# (site, rate) units.
+DNA_TEAM = 128
+WIDE_TEAM = 256
+RED_UNITS = 512
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_PER_SM = 228 * 1024      # of which the runtime keeps 1 KB per block
 T_SCRATCH_BYTES = 256 << 20
-# K = 20: threads per pair (csrc/blo_newton.cu TEAM), one persistent CTA
-# each; __launch_bounds__(WIDE_TEAM, 1) gives a thread the register file's
-# share, at most 255; one barrier publishes the partial sums of RED_UNITS
-# (site, rate) units
-WIDE_TEAM = 256
-RED_UNITS = 512
 SM_REGISTERS = 65536
+MAX_CTAS_PER_SM = 32
+MAX_THREADS_PER_SM = 2048
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "blo_newton.cu")
@@ -100,76 +99,98 @@ def _round32(n: int) -> int:
 
 def _tab_bytes(k: int, r: int, mixture: bool = False) -> int:
     """Bytes of the scalar tables at the head of the kernel's shared memory,
-    as csrc/blo_newton.cu lays them out: 192 floats for every DNA
-    instantiation; at K = 20 x_rk, wA and A, piA ([K, K], or [RK, K] for a
-    mixture), rounded up to 32 floats (``wide_tab_floats``)."""
+    as csrc/blo_newton.cu lays them out: 224 floats for every DNA
+    instantiation (TAB_FLOATS: x_rk, wA, A, piA and x_rk^2 at R = 8); at
+    K = 20 x_rk, wA and A, piA ([K, K], or [RK, K] for a mixture), rounded
+    up to 32 floats (``wide_tab_floats``)."""
     if k == 4:
-        return 192 * 4
+        return 224 * 4
     rk = r * k
     floats = rk + rk * k + (2 * rk * k if mixture else 2 * k * k)
     return _round32(floats) * 4
 
 
+def _team(k: int) -> int:
+    """Threads per pair (one CTA) at ``k`` states."""
+    return DNA_TEAM if k == 4 else WIDE_TEAM
+
+
 def _exp_bytes(k: int) -> int:
-    """Shared memory of a CTA for the exponential rows e^{x t} that the
-    K = 20 team keeps there (two rows of 32 floats per warp, each holding
-    its warp's rate's 20); the DNA warps keep theirs in registers."""
-    return 0 if k == 4 else WIDE_TEAM // 32 * 2 * 32 * 4
+    """Shared memory of a CTA for its exponential rows e^{x t}: two rows of
+    32 floats per warp (the RK exponentials at K = 4, the warp's rate's 20
+    at K = 20)."""
+    return _team(k) // 32 * 2 * 32 * 4
 
 
 def _red_bytes(k: int) -> int:
-    """Shared memory of a K = 20 CTA for its reductions: per-unit partial
-    sums [2][3][RED_UNITS] and warp slots [2][2][warps] (rounded up to 32
-    floats); the DNA warps reduce by shuffles alone."""
-    return 0 if k == 4 else (6 * RED_UNITS
-                             + _round32(4 * WIDE_TEAM // 32)) * 4
+    """Shared memory of a CTA for its reductions: warp slots [2][2][warps]
+    (at K = 4 and two ints more, the next pair's index; rounded up to 32
+    floats) and, at K = 20, per-unit partial sums [2][3][RED_UNITS]."""
+    if k == 4:
+        return _round32(4 * DNA_TEAM // 32 + 2) * 4
+    return (6 * RED_UNITS + _round32(4 * WIDE_TEAM // 32)) * 4
 
 
-def _team_fixed_bytes(R: int, mixture: bool) -> int:
-    """A K = 20 CTA's shared memory ahead of T: tables, exponential rows,
+def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
+    """Floats of T per site (csrc/blo_newton.cu): at K = 20 its rows (RK,
+    +1 with +I; T is [rows][width]); at K = 4, where T is site-major
+    ([width][stride]), the rows padded to 4 mod 8 (``dna_t_stride``)."""
+    rows = rk + has_pinv
+    if k != 4:
+        return rows
+    padded = -(-rows // 4) * 4
+    return padded + 4 if padded % 8 == 0 else padded
+
+
+def _team_fixed_bytes(k: int, R: int, mixture: bool) -> int:
+    """A CTA's shared memory ahead of T: tables, exponential rows,
     reduction buffers."""
-    return _tab_bytes(20, R, mixture) + _exp_bytes(20) + _red_bytes(20)
+    return _tab_bytes(k, R, mixture) + _exp_bytes(k) + _red_bytes(k)
 
 
-def wide_geometry(R: int, width: int, mixture: bool = False,
-                  has_pinv: bool = False) -> dict:
-    """The K = 20 kernel's geometry for R rate categories and sumtable width
-    ``width``, as csrc/blo_newton.cu (``TeamLayout``, ``launch_team``)
-    sets it up: ``threads`` per pair (one CTA), ``tile`` sites per tile
-    (32 x the warps of a rate), ``t_shared`` (T in shared memory; else in
-    the device-memory scratch) and ``shared_bytes`` of the CTA; and the
-    predicted ``ctas_per_sm`` and ``warps_per_sm``, on the assumption that
-    a team takes the register file (the launcher reads the runtime's
-    occupancy instead: :meth:`_BloNewton.team_geometry`)."""
-    rk = 20 * R
-    fixed = _team_fixed_bytes(R, mixture)
-    t = _round32((rk + has_pinv) * width) * 4
+def kernel_geometry(num_states: int, R: int, width: int,
+                    mixture: bool = False, has_pinv: bool = False,
+                    regs: int = 255) -> dict:
+    """The kernel's geometry at ``num_states`` (4 or 20) and R rate
+    categories for sumtable width ``width``, as csrc/blo_newton.cu
+    (``TeamLayout``, ``launch_dna``, ``launch_team``) sets it up:
+    ``threads`` per pair (one CTA), ``tile`` (thread t owns sites t,
+    t + tile, ...; at K = 20 of its rate), ``t_shared`` (T in shared
+    memory; else in the device-memory scratch) and ``shared_bytes`` of the
+    CTA; and ``ctas_per_sm`` and ``warps_per_sm`` as the runtime's
+    occupancy gives them for ``regs`` registers a thread (the count ptxas
+    gave the instantiation, which :meth:`_BloNewton.team_geometry` reads
+    back; 255, the most a thread may hold, by default): registers go to
+    warps in units of 256 within each of an SM's four partitions, and each
+    CTA's shared memory costs 1 KB more."""
+    threads = _team(num_states)
+    warps = threads // 32
+    fixed = _team_fixed_bytes(num_states, R, mixture)
+    t = _round32(_t_stride(num_states, num_states * R, has_pinv)
+                 * width) * 4
     t_shared = fixed + t <= SMEM_PER_BLOCK
     shared = fixed + t * t_shared
-    warps = WIDE_TEAM // 32
-    regs = min(255, SM_REGISTERS // WIDE_TEAM)
-    ctas = min(2048 // WIDE_TEAM, SM_REGISTERS // (WIDE_TEAM * regs),
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = SM_REGISTERS // 4 // per_warp * 4 // warps
+    ctas = min(MAX_THREADS_PER_SM // threads, MAX_CTAS_PER_SM, by_regs,
                SMEM_PER_SM // (shared + 1024))
-    return dict(threads=WIDE_TEAM, tile=32 * max(1, warps // R),
-                t_shared=t_shared, shared_bytes=shared,
-                ctas_per_sm=ctas, warps_per_sm=ctas * warps)
+    tile = threads if num_states == 4 else 32 * max(1, warps // R)
+    return dict(threads=threads, tile=tile, t_shared=t_shared,
+                shared_bytes=shared, regs=regs, ctas_per_sm=ctas,
+                warps_per_sm=ctas * warps)
 
 
 def max_shared_sites(rk: int, has_pinv: bool = False, num_states: int = 4,
                      mixture: bool = False) -> int:
     """Widest window whose sumtable the kernel keeps in shared memory; wider
-    windows keep it in device memory. DNA: two pairs of T per block, up
-    to 96 KB each; +I adds one row (pv) to the sumtable: 1440 sites at
-    RK = 16. K = 20: one pair's T beside the team's tables, exponential
-    rows and reduction buffers: 640 sites at RK = 80, with or without +I
-    (608 for a mixture)."""
-    rows = rk + has_pinv
-    if num_states == 20:
-        room = SMEM_PER_BLOCK - _team_fixed_bytes(rk // 20, mixture)
-        return room // (rows * 4) // 32 * 32
-    two = (SMEM_PER_BLOCK - _tab_bytes(4, rk // 4)) // (2 * 4 * rows)
-    return min(MAX_SHARED_SITES, MAX_RK_SITES // rows // 32 * 32,
-               two // 32 * 32)
+    windows keep it in device memory: one pair's T beside the CTA's
+    tables, exponential rows and reduction buffers. +I adds one row (pv)
+    to the sumtable. K = 4: 2880 sites at RK = 16, with or without +I (20
+    floats a site). K = 20: 640 sites at RK = 80, with or without +I (608
+    for a mixture)."""
+    room = SMEM_PER_BLOCK - _team_fixed_bytes(num_states, rk // num_states,
+                                              mixture)
+    return room // (_t_stride(num_states, rk, has_pinv) * 4) // 32 * 32
 
 
 def kernel_width(spans) -> int:
@@ -238,8 +259,9 @@ def team_site_sum(x, tile: int = 32, warps: int = 1):
     warp's 32 thread sums meet in an xor butterfly (lane i adds lane
     i ^ m's value, m = 16 .. 1, which leaves the same float in every lane);
     then the ``warps`` warp sums (zero past the tile) meet in a fixed tree,
-    a[i] += a[i + h] for h = warps/2 .. 1. One warp (tile 32, K = 4) or a
-    K = 20 team (``WIDE_TEAM`` threads, a tile per rate-count)."""
+    a[i] += a[i + h] for h = warps/2 .. 1. A K = 4 team (``DNA_TEAM``
+    threads, one tile) or a K = 20 team (``WIDE_TEAM`` threads, a tile per
+    rate)."""
     n, W = x.shape
     x = torch.nn.functional.pad(x, (0, -W % tile)).reshape(n, -1, tile)
     acc = x[:, 0]
@@ -296,11 +318,11 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     mixture: ``A``/``piA`` of [K, K] or per-rate [RK, K] rows, a query tip
     ``tQ`` of K or RK (per-category) rows. Sums run in the kernel's
     orders (``site_sum``, ``eigen_sums``): back-transform over k,
-    contraction over i; at K = 4 f0/f1/f2 and the score over j, and a
-    window's sites lane by lane, then a warp's xor butterfly; at K = 20
-    per rate over k, then the rates in order, and the sites as the team
-    adds them (lane by lane over tiles, the warp butterfly, the warps in a
-    fixed tree). So on a borderline pair both take the same Newton stops.
+    contraction over i; at K = 4 f0/f1/f2 and the score over j; at K = 20
+    per rate over k, then the rates in order; and the sites as the team
+    adds them (thread by thread over tiles, the warp butterfly, the warps
+    in a fixed tree). So on a borderline pair both take the same Newton
+    stops, and the two agree bit for bit.
     With ``invq`` [Q, S], ``ls`` [E, S] and ``omp``
     (1 - pinv) the +I term joins every site likelihood,
     g = omp * f + exp(invq[q] - ls[e]), in the kernel's order of
@@ -334,9 +356,9 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     def exps(t):                                             # [n] -> [n, RK]
         return torch.exp(x_rk[None, :] * t[:, None])
 
-    # the kernel's sum over a window's sites: one warp at K = 4, a team of
-    # WIDE_TEAM threads at K = 20 (csrc/blo_newton.cu TeamCtx::team_sum)
-    tile, warps = ((32, 1) if K == 4
+    # the kernel's sum over a window's sites: its team's (csrc/blo_newton.cu
+    # team_sum), DNA_TEAM threads at K = 4, WIDE_TEAM at K = 20
+    tile, warps = ((DNA_TEAM, DNA_TEAM // 32) if K == 4
                    else (32 * max(1, WIDE_TEAM // 32 // R), WIDE_TEAM // 32))
 
     def site_sum(x):                                         # [n, W] -> [n]
@@ -621,30 +643,32 @@ class _BloNewton:
             lib.blo_newton_launch.restype = i32
             lib.blo_newton_launch.argtypes = (
                 [ptr] * 3 + [i32] * 4 + [ptr] * 3 + [ptr] * 6
-                + [ptr] * 4 + [i32] * 5 + [ptr] + [ptr] * 7 + [ptr])
+                + [ptr] * 4 + [i32] * 4 + [ptr] * 2 + [ptr] * 7 + [ptr])
             lib.blo_newton_team_geometry.restype = i32
-            lib.blo_newton_team_geometry.argtypes = [i32] * 4 + [ptr]
+            lib.blo_newton_team_geometry.argtypes = [i32] * 5 + [ptr]
             lib.blo_newton_error_string.restype = ctypes.c_char_p
             lib.blo_newton_error_string.argtypes = [i32]
             self._libs[has_pinv] = lib
             return lib
 
-    def team_geometry(self, R: int, width: int, mixture: bool = False,
-                      has_pinv: bool = False,
+    def team_geometry(self, num_states: int, R: int, width: int,
+                      mixture: bool = False, has_pinv: bool = False,
                       device_t: bool = False) -> dict:
-        """The geometry of a K = 20 launch as the library sets it up on the
-        current card: ``threads`` per CTA, ``ctas_per_sm`` (the runtime's
-        occupancy, which sets the persistent grid), ``shared_bytes`` and
-        ``t_shared``; ``device_t`` as with a device-memory scratch."""
+        """The geometry of a launch as the library sets it up on the current
+        card: ``threads`` per CTA, ``ctas_per_sm`` (the runtime's
+        occupancy, which sets the persistent grid), ``shared_bytes``,
+        ``t_shared`` and the instantiation's ``regs`` per thread;
+        ``device_t`` as with a device-memory scratch."""
         lib = self.build(has_pinv)
-        geo = (ctypes.c_int * 4)()
-        rc = lib.blo_newton_team_geometry(R, int(mixture), width,
+        geo = (ctypes.c_int * 5)()
+        rc = lib.blo_newton_team_geometry(num_states, R, int(mixture), width,
                                           int(device_t), geo)
         if rc != 0:
             msg = lib.blo_newton_error_string(rc).decode()
             raise RuntimeError(f"blo_newton geometry: {msg} ({rc})")
         return dict(threads=geo[0], ctas_per_sm=geo[1],
-                    shared_bytes=geo[2], t_shared=bool(geo[3]))
+                    shared_bytes=geo[2], t_shared=bool(geo[3]),
+                    regs=geo[4])
 
     def build_all(self):
         """Build both flavours with two nvcc processes side by side."""
@@ -717,42 +741,31 @@ class _BloNewton:
                 for _ in range(5)]
         counts = ([torch.empty(P, dtype=torch.int32, device=dev)
                    for _ in range(2)] if counters else [])
-        rows = RK + has_pinv
-        per_pair = rows * width * 4
-        scratch = None
-        if K == 20:
-            # one persistent CTA per resident team; the library keeps T in
-            # shared memory where it fits (wide_geometry mirrors its choice)
-            ppb, blocks = 0, P
-            geo = wide_geometry(R, width, mixture, has_pinv)
-            if not geo["t_shared"]:
-                sms = torch.cuda.get_device_properties(
-                    dev).multi_processor_count
-                blocks = max(1, min(P, sms * geo["ctas_per_sm"],
-                                    T_SCRATCH_BYTES // per_pair))
-                scratch = torch.empty(blocks * rows * width,
-                                      dtype=torch.float32, device=dev)
-        elif width <= max_shared_sites(RK, has_pinv, K, mixture):
-            # T in shared memory; one warp per pair
-            ppb = max(1, min(4, (SMEM_PER_BLOCK - _tab_bytes(K, R))
-                             // per_pair))
-            blocks = -(-P // ppb)
-        else:
-            # T in device memory: as many warps as the scratch has slices,
-            # each looping over pairs
-            ppb = 4
-            blocks = max(1, min(-(-P // ppb),
-                                T_SCRATCH_BYTES // (ppb * per_pair)))
-            scratch = torch.empty(blocks * ppb * rows * width,
-                                  dtype=torch.float32, device=dev)
+        # one persistent CTA per resident team; the library keeps T in
+        # shared memory where it fits (kernel_geometry mirrors its choice),
+        # else in a device-memory scratch of one slice per CTA
+        blocks, scratch = P, None
+        if not kernel_geometry(K, R, width, mixture, has_pinv)["t_shared"]:
+            per_pair = _t_stride(K, RK, has_pinv) * width
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            ctas = self.team_geometry(K, R, width, mixture, has_pinv,
+                                      device_t=True)["ctas_per_sm"]
+            blocks = max(1, min(P, sms * ctas,
+                                T_SCRATCH_BYTES // (per_pair * 4)))
+            scratch = torch.empty(blocks * per_pair, dtype=torch.float32,
+                                  device=dev)
+        # the K = 4 kernel's pair counter, 0 at launch
+        next_pair = (torch.zeros(1, dtype=torch.int32, device=dev)
+                     if K == 4 else None)
         ptrs = lambda ts: [t.data_ptr() for t in ts]
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib.blo_newton_launch(
                 tU_c.data_ptr(), tV_c.data_ptr(), tQ_c.data_ptr(), S, K, R,
                 int(mixture), *(ptrs(pinv_args) or [None] * 3),
-                *ptrs(args_i), *ptrs(args_f), P, width, max_smoothings, ppb,
+                *ptrs(args_i), *ptrs(args_f), P, width, max_smoothings,
                 blocks, None if scratch is None else scratch.data_ptr(),
+                None if next_pair is None else next_pair.data_ptr(),
                 *ptrs(outs), *(ptrs(counts) or [None] * 2), stream)
         if rc != 0:
             msg = lib.blo_newton_error_string(rc).decode()

@@ -333,12 +333,15 @@ def test_blo_supported_and_op_count(model_consts, model):
     assert "f32" in bk.blo_unsupported(c64)
     c9 = c._replace(rates=torch.ones(9))
     assert "9 rate categories" in bk.blo_unsupported(c9)
-    # T in shared memory up to 96 KB per pair, device memory beyond
-    assert bk.max_shared_sites(16) == 1536
-    assert bk.max_shared_sites(32) == 768
-    # +I adds one sumtable row: 17 rows of 1440 sites stay within 96 KB
-    assert bk.max_shared_sites(16, has_pinv=True) == 1440
-    assert 17 * 1440 * 4 <= bk.MAX_RK_SITES * 4
+    # K = 4: one pair's T per CTA beside its tables, exponential rows and
+    # warp slots (2,048 B), within 227 KB; T is site-major, its RK rows
+    # (+1 with +I) padded to 4 mod 8 floats a site
+    assert bk.max_shared_sites(16) == 2880
+    assert bk.max_shared_sites(32) == 1600
+    assert bk.max_shared_sites(16, has_pinv=True) == 2880
+    assert [bk._t_stride(4, 4 * R, p) for R in (1, 2, 4, 8)
+            for p in (False, True)] == [4, 12, 12, 12, 20, 20, 36, 36]
+    assert bk._t_stride(20, 80, True) == 81
     # RK = 80: one team's T beside its scalar tables, exponential rows and
     # reduction buffers, in one CTA: 640 sites (608 for a mixture), with
     # or without +I
@@ -350,11 +353,12 @@ def test_blo_supported_and_op_count(model_consts, model):
                  + bk._red_bytes(20))
         assert fixed + rows * w * 4 <= bk.SMEM_PER_BLOCK
         assert fixed + rows * (w + 32) * 4 > bk.SMEM_PER_BLOCK
-    assert bk._exp_bytes(4) == bk._red_bytes(4) == 0
+    assert bk._exp_bytes(4) == 4 * 2 * 32 * 4
+    assert bk._red_bytes(4) == 32 * 4
     assert bk._exp_bytes(20) == 8 * 2 * 32 * 4
     assert bk._red_bytes(20) == (2 * 3 * 512 + 32) * 4
     # the tables' sizes as csrc/blo_newton.cu lays them out
-    assert bk._tab_bytes(4, 8) == 192 * 4
+    assert bk._tab_bytes(4, 8) == 224 * 4
     assert bk._tab_bytes(20, 4) == -(-(80 + 1600 + 800) // 32) * 32 * 4
     assert bk._tab_bytes(20, 4, True) == -(-(80 + 3 * 1600) // 32) * 32 * 4
     assert bk.kernel_width(np.array([1, 200, 33])) == 224
@@ -403,15 +407,17 @@ def _team_sum_loop(row, tile, warps):
     return sums[0]
 
 
-@pytest.mark.parametrize("K,R,width", [(4, 4, 200), (20, 4, 128),
+@pytest.mark.parametrize("K,R,width", [(4, 4, 200), (4, 2, 330),
+                                       (4, 4, 256), (20, 4, 128),
                                        (20, 4, 300), (20, 3, 352)])
 def test_team_site_sum_order(K, R, width):
-    """``team_site_sum`` adds a window's sites in the kernel's order: one
-    warp at K = 4 (lanes, then the butterfly); at K = 20 the team (a tile
-    of 32 x 8/R sites per pass, the butterfly, a tree over 8 warps);
-    bit for bit against the order written out, and within 1e-5 relative
-    of the f64 sum."""
-    tile, warps = ((32, 1) if K == 4
+    """``team_site_sum`` adds a window's sites in the kernel's order: at
+    K = 4 the team of 128 threads (one tile of 128 sites per pass, the
+    butterfly, a tree over 4 warps), at widths below, above and at a
+    multiple of the tile; at K = 20 the team (a tile of 32 x 8/R sites per
+    pass, the butterfly, a tree over 8 warps); bit for bit against the
+    order written out, and within 1e-5 relative of the f64 sum."""
+    tile, warps = ((bk.DNA_TEAM, bk.DNA_TEAM // 32) if K == 4
                    else (32 * (bk.WIDE_TEAM // 32 // R), bk.WIDE_TEAM // 32))
     rng = np.random.default_rng(K + R + width)
     x = rng.random((3, width)).astype(np.float32) * 10
@@ -430,7 +436,7 @@ def test_wide_geometry(shape):
     team takes the register file), T within 227 KB of shared memory; and
     the boundary past which T moves to the device-memory scratch."""
     mix, pinv = shape == "mixture", shape == "pinv"
-    g = bk.wide_geometry(4, 128, mix, pinv)
+    g = bk.kernel_geometry(20, 4, 128, mix, pinv)
     assert g["threads"] == 256 and g["tile"] == 64
     assert g["ctas_per_sm"] == 1 and g["warps_per_sm"] == 8
     assert g["t_shared"]
@@ -440,10 +446,47 @@ def test_wide_geometry(shape):
     assert g["shared_bytes"] == {"protein": 65408, "mixture": 75008,
                                  "pinv": 65920}[shape]
     shared = bk.max_shared_sites(80, pinv, 20, mix)
-    at = bk.wide_geometry(4, shared, mix, pinv)
+    at = bk.kernel_geometry(20, 4, shared, mix, pinv)
     assert at["t_shared"] and at["shared_bytes"] <= bk.SMEM_PER_BLOCK
     assert at["ctas_per_sm"] == 1
-    dev = bk.wide_geometry(4, shared + 32, mix, pinv)
+    dev = bk.kernel_geometry(20, 4, shared + 32, mix, pinv)
     assert not dev["t_shared"]
     assert dev["shared_bytes"] == tab + 2048 + (3072 + 32) * 4
     assert dev["warps_per_sm"] == 8
+
+
+@pytest.mark.parametrize("pinv", [False, True])
+def test_dna_geometry(pinv):
+    """The K = 4 team's geometry, as csrc/blo_newton.cu lays it out: 128
+    threads a pair, thread t owning sites t, t + 128, ...; 2,048 B of
+    tables (896), exponential rows (1,024) and warp slots (128) ahead of
+    one pair's site-major T (20 floats a site at R = 4, with or without
+    +I); CTAs per SM from the registers a thread takes (in units of 256 a
+    warp within each of four partitions), the 228 KB of an SM (1 KB more a
+    CTA) and its 2048 threads; and the home at the boundary widths."""
+    g = bk.kernel_geometry(4, 4, 256, has_pinv=pinv, regs=64)
+    assert g["threads"] == 128 and g["tile"] == 128 and g["t_shared"]
+    assert g["shared_bytes"] == 2048 + 20 * 256 * 4 == 22528
+    assert g["ctas_per_sm"] == 8 and g["warps_per_sm"] == 32
+    # registers and shared memory each bound the occupancy
+    assert bk.kernel_geometry(4, 4, 256, has_pinv=pinv,
+                              regs=40)["ctas_per_sm"] == 9
+    assert bk.kernel_geometry(4, 4, 256, has_pinv=pinv,
+                              regs=72)["ctas_per_sm"] == 7
+    assert bk.kernel_geometry(4, 4, 256, has_pinv=pinv)["ctas_per_sm"] == 2
+    assert bk.kernel_geometry(4, 4, 128, has_pinv=pinv,
+                              regs=32)["ctas_per_sm"] == 16
+    widest = bk.max_shared_sites(16, pinv)
+    assert widest == 2880
+    at = bk.kernel_geometry(4, 4, widest, has_pinv=pinv, regs=64)
+    assert at["t_shared"] and at["shared_bytes"] <= bk.SMEM_PER_BLOCK
+    assert at["shared_bytes"] + 20 * 32 * 4 > bk.SMEM_PER_BLOCK
+    assert at["ctas_per_sm"] == 1
+    dev = bk.kernel_geometry(4, 4, widest + 32, has_pinv=pinv, regs=64)
+    assert not dev["t_shared"] and dev["shared_bytes"] == 2048
+    assert dev["ctas_per_sm"] == 8
+    # every rate count's widest shared T fits beside the fixed 2,048 B
+    for R in range(1, bk.MAX_RATES + 1):
+        w = bk.max_shared_sites(4 * R, pinv)
+        assert bk.kernel_geometry(4, R, w, has_pinv=pinv)["t_shared"]
+        assert not bk.kernel_geometry(4, R, w + 32, has_pinv=pinv)["t_shared"]

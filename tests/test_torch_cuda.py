@@ -5,8 +5,11 @@ where only the port is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances as tests/test_torch_blo_kernel.py (tests/test_pallas.py's): logl
-within 0.05 absolute, lengths by the 0.9 quantile over logl-sharp pairs.
+The kernel and its plain version add in the same order (the team's), so
+they agree bit for bit; where the plain version is not the reference
+(the engine against the f64 CPU run), tolerances are
+tests/test_torch_blo_kernel.py's (tests/test_pallas.py's): logl within
+0.05 absolute, lengths by the 0.9 quantile over logl-sharp pairs.
 """
 
 import numpy as np
@@ -51,33 +54,53 @@ def _state(dev, n_pairs, seed, model=GTR, n_taxa=24, data_seed=9,
     return out + (invq,) if with_invq else out
 
 
-def _assert_matches_plain(got, tables, args, width, logl_tol=0.05, **kw):
-    ref = bk.blo_newton_plain(tables, *args, width, **kw)
-    d = (got[0] - ref[0]).abs().cpu().numpy()
-    assert (d < logl_tol).all(), d.max()
-    sharp = d < 1e-3
-    assert sharp.mean() > 0.9
-    for i in (1, 2):
-        dd = (got[i] - ref[i]).abs().cpu().numpy()[sharp]
-        assert np.quantile(dd, 0.9) < 0.01
+def _assert_bitwise(got, ref):
+    """Kernel outputs equal to the plain version's, bit for bit (the
+    counters, if any, too)."""
+    assert (got[0] - ref[0]).abs().max().item() == 0.0
+    for k, r in zip(got[1:5], ref[1:5]):
+        assert torch.equal(k, r)
+    for k, r in zip(got[5:], ref[5:]):
+        assert torch.equal(k.long(), r)
+
+
+def _dna_width(home, pinv):
+    """The sumtable width that puts a K = 4 launch (R = 4) in ``home``: T in
+    shared memory at the main path's width (256) and at the widest window
+    that keeps it there (max_shared_sites), or T in device memory (past
+    it). The library's geometry (the runtime's occupancy at the registers
+    ptxas gave) matches kernel_geometry's."""
+    shared = bk.max_shared_sites(16, pinv)
+    width = {"shared": 256, "widest": shared, "device": shared + 32}[home]
+    lib = bk.blo_newton.team_geometry(4, 4, width, has_pinv=pinv,
+                                      device_t=home == "device")
+    g = bk.kernel_geometry(4, 4, width, has_pinv=pinv, regs=lib["regs"])
+    assert g["t_shared"] == (home != "device")
+    assert lib == {k: g[k] for k in lib}
+    return width
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("width", [256, bk.max_shared_sites(16) + 480])
-def test_kernel_matches_plain_on_card(width):
-    """The sumtable in shared memory (256) and, past the shared-memory
-    budget, in device memory (2016)."""
+@pytest.mark.parametrize("home", ["shared", "widest", "device"])
+def test_kernel_matches_plain_on_card(home):
+    """The K = 4 kernel against its plain version, bit for bit, with the
+    counters: the sumtable in shared memory (the main path's width 256,
+    and the widest that fits, 2880) and in device memory (2912)."""
     dev = _card()
+    width = _dna_width(home, False)
     eng, tQ, pe, pq, pb, sp = _state(dev, 512, seed=5)
     blo = eng.blo
     args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
             torch.zeros(len(pe), device=dev))
     tables = bk._kernel_scalars(eng.consts, torch.float32)
-    before = bk.blo_newton.launches
-    got = bk.blo_newton(tables, *args, width)
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, width, counters=True)
     torch.cuda.synchronize()
-    assert bk.blo_newton.launches == before + 1
-    _assert_matches_plain(got, tables, args, width)
+    after = bk.blo_newton.counts()
+    assert after["k4_launches"] == before["k4_launches"] + 1
+    assert after["launches"] == before["launches"] + 1
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
+                                             counters=True))
 
 
 @pytest.mark.requires_cuda
@@ -107,19 +130,18 @@ def test_wrapper_raises_instead_of_falling_back():
 @pytest.mark.requires_cuda
 def test_engine_wide_windows_take_the_kernel(monkeypatch):
     """Reads spanning more sites than the shared-memory sumtable holds
-    (about 1840 of 2048) go through the kernel on the card, in the fused
-    step and in the exact path, never through the torch Newton.
+    (3686 of 4096, past max_shared_sites(16) = 2880) go through the kernel
+    on the card, in the fused step and in the exact path, never through
+    the torch Newton.
 
     The kernel matches its plain version on the card on every (query,
-    edge) pair, logl within 0.05 per 256 sites of span (the per-site error
-    of the short-read rule; f32 sums over 1843 sites in another order), and
-    the placements match the port's f64 CPU engine (best logl to 1e-5
+    edge) pair, bit for bit, and the placements match the port's f64 CPU engine (best logl to 1e-5
     relative, top edge up to ties) on at least 90% of the queries: on this
     data one query's pendant Newton stalls in f32 at its lower bound on
     the card, where its likelihood cancels below FLT_MIN, and keeps the
     initial lengths (the plain version on the card does the same)."""
     dev = _card()
-    tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=2048, n_queries=32,
+    tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=4096, n_queries=32,
                                         seed=4, model_str=GTR, read_frac=0.9)
     cpu = PlacementEngine(tree, ref, Model.from_string(GTR), Options(),
                           device="cpu")
@@ -155,8 +177,8 @@ def test_engine_wide_windows_take_the_kernel(monkeypatch):
             torch.zeros(len(pe), device=dev))
     tables = bk._kernel_scalars(eng.consts, torch.float32)
     width = bk.kernel_width(spans)
-    _assert_matches_plain(bk.blo_newton(tables, *args, width), tables, args,
-                          width, logl_tol=0.05 * spans[pq] / 256.0)
+    _assert_bitwise(bk.blo_newton(tables, *args, width),
+                    bk.blo_newton_plain(tables, *args, width))
 
     assert [p.seq_id for p in got] == [p.seq_id for p in want]
     close, agree = [], []
@@ -173,18 +195,19 @@ PINV = GTR + "+I{0.25}"
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", ["blocked", "per_pair"])
-@pytest.mark.parametrize("home", ["shared", "device"])
+@pytest.mark.parametrize("home", ["shared", "widest", "device"])
 def test_pinv_kernel_matches_plain_on_card(shape, home):
     """The +I kernel (K2 blocked, K4 per-pair) against its plain version on
-    the card, with the sumtable (and its pv row) in shared memory (width
-    256) and in device memory (past max_shared_sites(16, True) = 1440)."""
+    the card, bit for bit, with the sumtable (and its pv row) in shared
+    memory (width 256, and the widest that fits: max_shared_sites(16,
+    True) = 2880) and in device memory (past it)."""
     dev = _card()
+    width = _dna_width(home, True)
     eng, tQ, pe, pq, pb, sp, invq = _state(dev, 512, seed=8, model=PINV,
                                            n_taxa=16, data_seed=21,
                                            with_invq=True)
     assert torch.isfinite(invq).any()
     blo = eng.blo
-    width = 256 if home == "shared" else bk.max_shared_sites(16, True) + 64
     tables = bk._kernel_scalars(eng.consts, torch.float32)
     omp = bk._omp(eng.consts, torch.float32)
     before = bk.blo_newton.counts()
@@ -216,12 +239,17 @@ def test_pinv_kernel_matches_plain_on_card(shape, home):
         got = bk.blo_optimize_batch_kernel(
             eng.consts, tu, tv, tq, lw, on.float(), blo.lengths[pe.long()],
             iv, has_pinv=True)
-        got = (got[0] - (on * lw).sum(1), got[1], got[3])
+        # the wrapper adds the window's log-scale sum to the kernel's logl
+        shift = torch.sum(on.float() * lw, dim=1)
+        got = (got[0], got[1], got[3])
     torch.cuda.synchronize()
     after = bk.blo_newton.counts()
     assert after["launches"] == before["launches"] + 1
     assert after["pinv_launches"] == before["pinv_launches"] + 1
-    _assert_matches_plain(got, tables, args, width, **pinv)
+    ref = bk.blo_newton_plain(tables, *args, width, **pinv)
+    if shape == "per_pair":
+        ref = (ref[0] + shift,) + ref[1:]
+    _assert_bitwise(got, ref)
 
 
 @pytest.mark.requires_cuda
@@ -255,6 +283,78 @@ def test_kernel_counters_match_plain_on_card(model):
     for k, r in zip(got[5:], ref[5:]):
         same = (k.long() == r).float().mean().item()
         assert same >= 0.99, same
+
+
+def _dna_args(dev, n_pairs, seed, model):
+    eng, tQ, pe, pq, pb, sp, invq = _state(dev, n_pairs, seed=seed,
+                                           model=model, n_taxa=16,
+                                           data_seed=21, with_invq=True)
+    blo = eng.blo
+    args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+            torch.zeros(len(pe), device=dev))
+    kw = {}
+    if model == PINV:
+        kw = dict(invq=invq, ls=blo.ls,
+                  omp=bk._omp(eng.consts, torch.float32))
+    return bk._kernel_scalars(eng.consts, torch.float32), args, kw
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", [GTR, PINV])
+def test_dna_kernel_dead_slots(model):
+    """The fused step hands the kernel mostly dead slots (skip): with 90%
+    of 4096 slots dead, more slots than the persistent grid has CTAs, so
+    each CTA walks live and dead slots in turn, the live pairs' outputs
+    and counters are the same as with none dead, every dead slot reports
+    the frozen state (logl 0, the default pendant, half the edge each
+    side, done, no work), and both runs are the plain version's, bit for
+    bit."""
+    dev = _card()
+    tables, args, kw = _dna_args(dev, 4096, 12, model)
+    geo = bk.blo_newton.team_geometry(4, 4, 256, has_pinv=model == PINV)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert len(args[3]) > 2 * sms * geo["ctas_per_sm"]
+    full = bk.blo_newton(tables, *args, 256, counters=True, **kw)
+    rng = np.random.default_rng(3)
+    dead = torch.as_tensor(rng.random(len(args[3])) < 0.9, device=dev)
+    some_args = args[:-1] + (dead.float(),)
+    some = bk.blo_newton(tables, *some_args, 256, counters=True, **kw)
+    torch.cuda.synchronize()
+    live = ~dead
+    assert 300 < int(live.sum()) < 500
+    for a, b in zip(full, some):
+        assert torch.equal(a[live], b[live])
+    orig = args[7][dead]
+    assert (some[0][dead] == 0).all()
+    assert (some[1][dead] == np.float32(tnewton.DEFAULT_PENDANT)).all()
+    assert torch.equal(some[2][dead], orig * 0.5)
+    assert torch.equal(some[3][dead], orig * 0.5)
+    assert (some[4][dead] == 1).all()
+    assert (some[5][dead] == 0).all() and (some[6][dead] == 0).all()
+    _assert_bitwise(full, bk.blo_newton_plain(tables, *args, 256,
+                                              counters=True, **kw))
+    _assert_bitwise(some, bk.blo_newton_plain(tables, *some_args, 256,
+                                              counters=True, **kw))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_pairs", [1, 100])
+@pytest.mark.parametrize("model", [GTR, PINV])
+def test_dna_kernel_few_pairs(model, n_pairs):
+    """Fewer pairs than the persistent grid holds (the launcher caps the
+    grid at P), down to one: each pair's outputs and counters are the
+    plain version's, bit for bit, and those of the same pair in a launch
+    of 512."""
+    dev = _card()
+    tables, args, kw = _dna_args(dev, 512, 5, model)
+    full = bk.blo_newton(tables, *args, 256, counters=True, **kw)
+    few = args[:3] + tuple(t[:n_pairs] for t in args[3:])
+    got = bk.blo_newton(tables, *few, 256, counters=True, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, full):
+        assert torch.equal(a, b[:n_pairs])
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *few, 256,
+                                             counters=True, **kw))
 
 
 @pytest.mark.requires_cuda
@@ -341,15 +441,15 @@ def _aa_width(home, case):
     """The sumtable width that puts a K = 20 launch in ``home``: T in
     shared memory at the main paths' width (128) and at the widest window
     that keeps it there (max_shared_sites), or T in device memory (past
-    it). The library's geometry (the runtime's occupancy) matches
-    wide_geometry's."""
+    it). The library's geometry (the runtime's occupancy at the registers
+    ptxas gave) matches kernel_geometry's."""
     pinv, mix = case == "lg_pinv", case == "mixture"
     shared = bk.max_shared_sites(80, pinv, 20, mix)
     width = {"shared": 128, "widest": shared, "device": shared + 64}[home]
-    g = bk.wide_geometry(4, width, mix, pinv)
-    assert g["t_shared"] == (home != "device")
-    lib = bk.blo_newton.team_geometry(4, width, mix, pinv,
+    lib = bk.blo_newton.team_geometry(20, 4, width, mix, pinv,
                                       device_t=home == "device")
+    g = bk.kernel_geometry(20, 4, width, mix, pinv, regs=lib["regs"])
+    assert g["t_shared"] == (home != "device")
     assert lib == {k: g[k] for k in lib}
     return width
 
@@ -378,12 +478,8 @@ def test_aa_kernel_matches_plain_on_card(case, home, mixture_registered):
     after = bk.blo_newton.counts()
     assert after[family] == before[family] + 1
     assert after["pinv_launches"] == before["pinv_launches"] + pinv
-    ref = bk.blo_newton_plain(tables, *args, width, counters=True, **kw)
-    assert (got[0] - ref[0]).abs().max().item() == 0.0
-    for k, r in zip(got[1:5], ref[1:5]):
-        assert torch.equal(k, r)
-    for k, r in zip(got[5:], ref[5:]):
-        assert torch.equal(k.long(), r)
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
+                                             counters=True, **kw))
 
 
 @pytest.mark.requires_cuda
