@@ -26,6 +26,9 @@ Phases (any failure exits non-zero and prints no result line):
 3c-3e. the same for the K = 20 instantiations: LG+G4{0.8} on the protein
    path's pairs, the four-component mixture on the mixture path's, and
    LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns;
+3f-3h. the same at 16 rate categories: GTR+G16 and GTR+I{0.2}+G16 (the K = 4
+   runtime-R instantiation) on the DNA and +I pairs, LG+G16{0.8} (the
+   K = 20 team's warps walking rates) on the protein pairs;
 4. the main path: ``epa_ng_tpu_torch.cli.main`` places 8192 evolved
    queries on a 512-taxon, 512-site tree under
    GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}, chunk 1024
@@ -37,14 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
    sites under LG+G4{0.8}, chunk 512 (the JAX bench's ``aa`` shape);
 4d. the mixture main path: 1024 random protein queries on 128 taxa x 256
    sites under four LG-derived components +G4{0.9}, chunk 512 (the JAX
-   bench's ``mixture`` cell); every main path must launch only its own
-   instantiation, always with the counters, and never the torch Newton;
+   bench's ``mixture`` cell);
+4e-4f. the headline data under GTR+G16{0.6} and the protein data under
+   LG+G16{0.8}, each through its instantiation past 8 rates; every main
+   path must launch only its own instantiation, always with the counters,
+   and never the torch Newton;
 5. correctness on a small input: the card's f32 placements against the
    port's own f64 CPU run (plain paths) of the same files, under the main
-   model, under +IC on data with invariant columns, and under LG+G4, the
-   mixture and LG+IC+G4;
-6. the DNA, +I, protein and mixture main paths once more under
-   torch.profiler (device time by kernel, busy share).
+   model, under +IC on data with invariant columns, under LG+G4, the
+   mixture and LG+IC+G4 (all on seed 5), and past 8 rates under
+   GTR+I{0.2}+R10 on data with invariant columns and under LG+G16;
+6. the DNA, +I, protein, mixture, GTR+G16 and LG+G16 main paths once more
+   under torch.profiler (device time by kernel, busy share).
 
 ``python3 chip_smoke.py --fmad-ab`` runs phase 1 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
@@ -73,12 +80,20 @@ PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
               "+G4{0.6}")
 IC_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+IC"
             "+G4{0.6}")
+# more than 8 rate categories: the K = 4 runtime-R instantiation, the
+# K = 20 team's warps walking rates
+G16_MODEL = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G16{0.6}"
+G16_PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}"
+                  "+I{0.2}+G16{0.6}")
+R10_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
+             "+R10{0.05/0.15/0.3/0.5/0.7/0.9/1.2/1.6/2.2/3.4}")
 INVARIANT_SHARE = 0.2    # of the +I cells' columns
 # protein (K = 20): the JAX bench's ``aa`` and ``mixture`` cells
 # (bench.py:278-287, :398-423)
 AA_MODEL = "LG+G4{0.8}"
 AA_PINV_MODEL = "LG+I{0.2}+G4{0.8}"
 AA_IC_MODEL = "LG+IC+G4{0.8}"
+AA_G16_MODEL = "LG+G16{0.8}"
 MIXTURE = "SMOKEMIX4M"   # four LG-derived components, gamma-coupled
 MIX_MODEL = MIXTURE + "+G4{0.9}"
 AA = "ARNDCQEGHILKMFPSTWYV"
@@ -120,9 +135,10 @@ def card_line() -> str:
 def ptxas_summary(log: str) -> list:
     """nvcc's -Xptxas -v output as one entry per kernel instantiation:
     "R<rates> <shared|device> <plain|pinv>: <n> regs, <b> B spill" for the
-    DNA ones (``blo_newton_dna_kernel``), "K20 <single|mixture>
-    <shared|device> <plain|pinv>: ..." for the K = 20 ones (rate count at
-    run time)."""
+    DNA ones (``blo_newton_dna_kernel``; R0 is the runtime-R one, past 8
+    rates), "K20 <single|mixture> <shared|device> <plain|pinv>[ walk]:
+    ..." for the K = 20 ones (rate count at run time; ``walk`` past 8
+    rates)."""
     import re
     out, cur = [], None
     home = lambda b: "device" if b == "1" else "shared"
@@ -135,11 +151,12 @@ def ptxas_summary(log: str) -> list:
             spill = None
             continue
         m = re.search(r"Function properties for \S*blo_newton_team_kernel"
-                      r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", ln)
+                      r"ILi(\d+)ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
         if m:
             kind = "mixture" if m.group(2) == "1" else "single"
             cur = (f"K{m.group(1)} {kind} {home(m.group(3))} "
-                   f"{flavour(m.group(4))}")
+                   f"{flavour(m.group(4))}"
+                   + (" walk" if m.group(5) == "1" else ""))
             spill = None
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -346,7 +363,9 @@ def compare(k, p32, p64):
     precision), and lengths by the 0.9 quantile over pairs whose logl
     agrees to 1e-3. Against the plain version in f64 (``*_f64``) the counts
     show where f32 itself is borderline: there another rounding of the same
-    sums can take another Newton stop or rollback."""
+    sums can take another Newton stop or rollback; ``off_f64`` lists up to
+    8 such pairs (index, then logl, pendant and distal of the kernel and of
+    the f64 plain version)."""
     import numpy as np
     n = lambda t: t.double().cpu().numpy()
     k0, a0, b0 = n(k[0]), n(p32[0]), n(p64[0])
@@ -354,7 +373,9 @@ def compare(k, p32, p64):
     sharp = d32 < 1e-3
     q90 = [float(np.quantile(np.abs(n(k[i]) - n(p32[i]))[sharp], 0.9))
            for i in (1, 2)]
-    return dict(max_abs_err=float(d32.max()),
+    off = [[int(i)] + [float(n(t[j])[i]) for j in range(3) for t in (k, p64)]
+           for i in np.nonzero(d64 > LOGL_ABS_TOL)[0][:8]]
+    return dict(max_abs_err=float(d32.max()), off_f64=off,
                 max_rel_err=float((d32 / np.abs(a0)).max()),
                 max_abs_err_f64=float(d64.max()),
                 pairs_off_f32=int((d32 > LOGL_ABS_TOL).sum()),
@@ -786,10 +807,10 @@ def parity_phase(tag, data, model):
     return res
 
 
-def check_main(tag, st, family, pinv=False):
+def check_main(tag, st, family, pinv=False, past8=False):
     """A main path launched the kernel's ``family`` instantiation and only
-    it, every launch with the counters (and with +I iff ``pinv``), and
-    never ran the torch Newton."""
+    it, every launch with the counters (with +I iff ``pinv``, at more than
+    8 rate categories iff ``past8``), and never ran the torch Newton."""
     check(st[family] > 0, f"{tag}: the {family} instantiation never ran")
     check(st[family] == st["launches"],
           f"{tag}: {st['launches'] - st[family]} launches of another "
@@ -797,6 +818,9 @@ def check_main(tag, st, family, pinv=False):
     check(st["pinv_launches"] == (st["launches"] if pinv else 0),
           f"{tag}: {st['pinv_launches']} of {st['launches']} launches "
           "with +I")
+    check(st["past8_launches"] == (st["launches"] if past8 else 0),
+          f"{tag}: {st['past8_launches']} of {st['launches']} launches "
+          "past 8 rate categories")
     check(st["counted_launches"] == st["launches"],
           f"{tag}: launched the kernel without its counters")
     check(st["twin_calls"] == 0,
@@ -893,6 +917,11 @@ def main(argv=()) -> int:
         apar = parity_phase("K=20 parity", adata, AA_MODEL)
         mpar = parity_phase("mixture parity", mdata, MIX_MODEL)
         appar = parity_phase("K=20 +I parity", apdata, AA_PINV_MODEL)
+        # phases 3f-3h: 16 rate categories (the K = 4 runtime-R
+        # instantiation without and with +I, the K = 20 rate walk)
+        gpar = parity_phase("R=16 parity", data, G16_MODEL)
+        gppar = parity_phase("R=16 +I parity", pdata, G16_PINV_MODEL)
+        agpar = parity_phase("K=20 R=16 parity", adata, AA_G16_MODEL)
 
         # phases 4-4d: the main paths, each with its counts reset
         stats = main_path(paths, n_queries, data[3], "cuda")
@@ -910,6 +939,15 @@ def main(argv=()) -> int:
                            name="main_mix", chunk=512)
         print("mixture main path: " + json.dumps(mstats), flush=True)
         check_main("mixture main path", mstats, "mixture_launches")
+        gstats = main_path(paths, n_queries, data[3], "cuda",
+                           model=G16_MODEL, name="main_g16")
+        print("G16 main path: " + json.dumps(gstats), flush=True)
+        check_main("G16 main path", gstats, "k4_launches", past8=True)
+        agstats = main_path(apaths, n_aa, adata[3], "cuda",
+                            model=AA_G16_MODEL, name="main_aa_g16",
+                            chunk=512)
+        print("LG+G16 main path: " + json.dumps(agstats), flush=True)
+        check_main("LG+G16 main path", agstats, "k20_launches", past8=True)
 
         # phase 5: small-input references
         small = small_reference("cuda")
@@ -926,16 +964,10 @@ def main(argv=()) -> int:
                                     size=MIX_SMALL)
         print("small reference mixture: " + json.dumps(small_mix),
               flush=True)
-        # seed 8: on the data of seeds 5-7, 9 and 11 one query's best edge
-        # meets the f32 Newton stall at the pendant's lower bound, which
-        # the kernel shares with the TPU kernel's arithmetic and the f32
-        # plain version repeats (PERF.md; ROADMAP 3 D); the parity phases
-        # count it on every run (pairs_off_f64)
         small_aa_ic = small_reference("cuda", model=AA_IC_MODEL,
                                       invariant_share=INVARIANT_SHARE,
                                       name="small_aa_ic", alphabet=AA,
-                                      freqs=lg_freqs(), size=AA_SMALL,
-                                      seed=8)
+                                      freqs=lg_freqs(), size=AA_SMALL)
         print("small reference LG+IC+G4: " + json.dumps(small_aa_ic),
               flush=True)
         aa_ic = small_aa_ic["launches"]
@@ -943,6 +975,26 @@ def main(argv=()) -> int:
               and aa_ic["pinv_launches"] == aa_ic["k20_launches"]
               == aa_ic["launches"],
               f"LG+IC+G4 small reference: K=20 +I launches {aa_ic}")
+        small_r10 = small_reference("cuda", model=R10_MODEL,
+                                    invariant_share=INVARIANT_SHARE,
+                                    name="small_r10")
+        print("small reference +I+R10: " + json.dumps(small_r10),
+              flush=True)
+        r10 = small_r10["launches"]
+        check(r10["pinv_launches"] > 0
+              and r10["pinv_launches"] == r10["past8_launches"]
+              == r10["k4_launches"] == r10["launches"],
+              f"+I+R10 small reference: K=4 +I launches {r10}")
+        small_aa_g16 = small_reference("cuda", model=AA_G16_MODEL,
+                                       name="small_aa_g16", alphabet=AA,
+                                       size=AA_SMALL)
+        print("small reference LG+G16: " + json.dumps(small_aa_g16),
+              flush=True)
+        ag16 = small_aa_g16["launches"]
+        check(ag16["past8_launches"] > 0
+              and ag16["past8_launches"] == ag16["k20_launches"]
+              == ag16["launches"],
+              f"LG+G16 small reference: K=20 launches {ag16}")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -956,6 +1008,12 @@ def main(argv=()) -> int:
         mprof = profile_main(mpaths, "cuda", model=MIX_MODEL,
                              name="profiled_mix", chunk=512)
         print("mixture profile: " + json.dumps(mprof), flush=True)
+        gprof = profile_main(paths, "cuda", model=G16_MODEL,
+                             name="profiled_g16")
+        print("G16 profile: " + json.dumps(gprof), flush=True)
+        agprof = profile_main(apaths, "cuda", model=AA_G16_MODEL,
+                              name="profiled_aa_g16", chunk=512)
+        print("LG+G16 profile: " + json.dumps(agprof), flush=True)
 
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
         shapes = lambda p, keys=("blocked", "blocked_widest_shared",
@@ -1025,6 +1083,28 @@ def main(argv=()) -> int:
                 "reference run (phase 5): protein +I has no main path of "
                 "its own", **team(appar),
                 parity={**shapes(appar), **tol}),
+            kernel_entry(
+                "blo_newton R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
+                gstats["past8_launches"], gpar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation="GTR+G16: K = 4, the runtime-R instantiation, "
+                "R = 16", **team(gpar), parity={**shapes(gpar), **tol}),
+            kernel_entry(
+                "blo_newton_pinv R=16", "epa_ng_tpu/ops/pallas_blo.py:174",
+                r10["past8_launches"], gppar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                instantiation="GTR+I{0.2}+G16: K = 4 with +I, the runtime-R "
+                "instantiation, R = 16",
+                launches_note="launches of the card's +I+R10 small "
+                "reference run (phase 5): K = 4 +I past 8 rates has no "
+                "main path of its own", **team(gppar),
+                parity={**shapes(gppar), **tol}),
+            kernel_entry(
+                "blo_newton K=20 R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
+                agstats["past8_launches"], agpar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation="LG+G16{0.8}: K = 20, warps walking rates, "
+                "R = 16", **team(agpar), parity={**shapes(agpar), **tol}),
         ]
         for root, _, files in os.walk(OUT):
             for f in files:

@@ -14,9 +14,11 @@ fused into one step per chunk (parallel.mesh.placement_step), with the
 ragged candidate sets padded to fixed-size blocks.
 
 On cuda the port runs DNA and protein models, single-matrix with or
-without +I, and protein matrix mixtures (LG4M/LG4X); binary and genotype
-models raise "not yet ported" there (they run on the CPU through the
-plain paths).
+without +I, and protein matrix mixtures (LG4M/LG4X), at up to the
+kernel's rate cap (``ops.blo_kernel.MAX_RATES``: 312 categories at K = 4,
+43 at K = 20, 27 for a mixture); binary and genotype models, and more
+rate categories than the cap, raise "not yet ported" there (they run on
+the CPU through the plain paths).
 """
 
 from __future__ import annotations
@@ -323,8 +325,10 @@ class PlacementEngine:
     def _use_kernel(self) -> bool:
         """Dispatch the Newton stage to the CUDA kernel? Always on a cuda
         device in f32, unless ``--pallas off``: what the kernel does not
-        take raises "not yet ported" there rather than running the torch
-        twin. The twin serves the CPU, f64 and ``--pallas off``."""
+        take (``blo_kernel.blo_unsupported``: non-sliding BLO, states other
+        than 4 and 20, more rate categories than ``blo_kernel.MAX_RATES``)
+        raises "not yet ported" there rather than running the torch twin.
+        The twin serves the CPU, f64 and ``--pallas off``."""
         opt = self.options.pallas
         if opt == "off":
             return False
@@ -910,8 +914,11 @@ def _check_device_model(device: torch.device, model: Model):
     """On the card the port places DNA (4-state) and protein (20-state)
     models with one substitution matrix, with or without +I (``+I{p}``,
     ``+IU{p}``, the empirical ``+IC``), and protein matrix mixtures
-    (LG4M/LG4X); binary and genotype models raise rather than running the
-    plain paths there (the JAX package runs them on its XLA twin, never on
+    (LG4M/LG4X), with up to ``blo_kernel.MAX_RATES`` rate categories (312
+    at K = 4, 43 at K = 20, 27 for a mixture: every rate count whose
+    kernel tables fit shared memory); binary and genotype models, and more
+    rate categories, raise rather than running the plain paths there (the
+    JAX package runs binary and genotype models on its XLA twin, never on
     a Pallas kernel)."""
     if device.type != "cuda":
         return
@@ -920,6 +927,14 @@ def _check_device_model(device: torch.device, model: Model):
             f"{model.num_states}-state models are not yet ported to the GPU "
             "in epa_ng_tpu_torch "
             "(run them with --device cpu, or with the JAX package)")
+    mixture = model.submodels is not None and model.num_ratecats > 1
+    cap = blo_kernel.MAX_RATES[(model.num_states, mixture)]
+    if model.num_ratecats > cap:
+        raise NotImplementedError(
+            f"{model.num_ratecats} rate categories are not yet ported to the "
+            f"GPU in epa_ng_tpu_torch (the Newton kernel takes 1..{cap} at "
+            f"{model.num_states} states{' for a mixture' if mixture else ''}"
+            "; run them with --device cpu)")
 
 
 def _transform_codes(consts, char_clvs, codes):

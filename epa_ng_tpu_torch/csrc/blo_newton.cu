@@ -101,8 +101,15 @@
 //     same Newton/smoothing branches;
 //   * tU/tV/tQ are re-read from L2 at each sumtable build (~5.7 a pair),
 //     coalesced along sites (the stores are site-last);
-//   * R stays a template parameter (the rate loops unrolled): 16 DNA
-//     instantiations a library (R 1-8 x home).
+//   * R stays a template parameter (the rate loops unrolled) up to
+//     MAX_R = 8: 16 DNA instantiations a library (R 1-8 x home). Past 8
+//     rates (GTR+G16, +R10) one runtime-R instantiation (RC = 0) a home
+//     takes any R up to the cap (ops/blo_kernel.py::max_rates, 312): its
+//     rate loops stay rolled, its tables take 24 R + 32 floats (416 at
+//     R = 16), and each lane fills ceil(RK / 32) entries of its warp's
+//     exponential row. At R = 16 T is 68 floats (272 B) a site, with or
+//     without +I, so 832 sites fit in shared memory: the headline's
+//     windows of up to 512 sites stay in the shared home.
 //
 // Protein (K = 20, TeamCtx, blo_newton_team_kernel). A warp per pair held
 // four pairs of T (4 x 40 KB at RK = 80, width 128) in one block per SM:
@@ -116,9 +123,16 @@
 //     neighbouring sites, so T rows (r*20+k)*width + w are free of bank
 //     conflicts; a rate gets 8/R warps (a tile of 256/R sites, in 32s), a
 //     thread the units w, w + tile, ... of its rate, and warps past R
-//     tiles idle. __launch_bounds__(256, 1) leaves ptxas up to 255
-//     registers, and the unrolled 20 x 20 back-transforms take 178-235
-//     without spill, so the register file holds one team: 8 warps an SM.
+//     tiles idle. Past 8 rates (WALK, a build of its own) warp w walks
+//     the rates w, w + 8, ... over a tile of 32 sites, a chunk is one
+//     tile (R * 32 units), and the warp keeps one exponential row a rate
+//     it walks. At R = 16 the tables take 7,520 floats (30 KB; 19,520,
+//     78 KB, for a mixture) and T 1,280 B a site, so T fits in shared
+//     memory only up to 128 sites (96 for a mixture) and the protein main
+//     path's windows mostly take the device-memory home.
+//     __launch_bounds__(256, 1) leaves ptxas up to 255 registers, and
+//     the unrolled 20 x 20 back-transforms take 178-235 without spill,
+//     so the register file holds one team: 8 warps an SM.
 //     512 threads (one unit each, 16 warps an SM at 128 registers) spilled
 //     40-140 B and ran 1.5% slower on protein pairs and 30% slower on
 //     mixture pairs (PERF.md);
@@ -150,6 +164,12 @@
 //     buffers, so one barrier per chunk and one per reduction suffice, and
 //     the whole team takes the same slide/snap/stop branches.
 //
+// The guarded snap (``cancelled``): where a Newton solve would stop on, or
+// crawl from, an evaluation whose site likelihood has cancelled in the
+// eigenbasis sum (near the lower bound, in f32), it backs off or doubles
+// the length instead; without it such a pair stalled at its initial
+// lengths, as the TPU kernel's still does (PERF.md).
+//
 // Built without --use_fast_math (tiny is FLT_MIN and the rollback test
 // |new| * 1e-14 must stay as written) and with -fmad=false: the kernel
 // then rounds every product and sum as its plain version
@@ -163,10 +183,11 @@
 // borderline (``python3 chip_smoke.py --fmad-ab``; PERF.md).
 //
 // The source is compiled twice, with BLO_HAS_PINV 0 and 1, into two
-// libraries that build in parallel; each holds the 16 DNA instantiations
-// (rate count x sumtable home) of its flavour, and the K = 20 ones
-// ({single, mixture} x home without +I, single x home with it; the JAX
-// package takes no +I with a mixture).
+// libraries that build in parallel; each holds the 18 DNA instantiations
+// (rate count 1-8 and runtime x sumtable home) of its flavour, and the
+// K = 20 ones ({single, mixture} x home x {up to 8 rates, WALK} without
+// +I, single x home x the same with it; the JAX package takes no +I with
+// a mixture).
 
 #include <cuda_runtime.h>
 
@@ -190,9 +211,12 @@ constexpr float DEFAULT_PENDANT = 0.10536051565782628f;  // -log(0.9)
 constexpr float OPT_BRANCH_EPSILON = 1e-1f;
 constexpr float GAIN_EPSILON = 1e-2f;
 constexpr float D1_EPSILON = 1e-4f;
-// DNA scalar tables at the head of shared memory: x_rk, wA, A, piA and
-// x_rk^2 take RK + RK*K + 2*K*K + RK = 24*R + 32 floats, 224 at the
-// widest instantiation (R = 8); ops/blo_kernel.py::_tab_bytes must match
+// K = 4: R = 1..MAX_R are compile-time instantiations (the rate loops
+// unrolled), R > MAX_R one runtime-R instantiation (RC = 0, rolled). The
+// DNA scalar tables at the head of shared memory, x_rk, wA, A, piA and
+// x_rk^2, take RK + RK*K + 2*K*K + RK = 24*R + 32 floats: TAB_FLOATS for
+// every compile-time instantiation (R = 8's), 24*R + 32 rounded up to 32
+// beyond (416 at R = 16); ops/blo_kernel.py::_tab_bytes must match
 constexpr int MAX_R = 8;
 constexpr int TAB_FLOATS = 224;
 static_assert(24 * MAX_R + 2 * K * K <= TAB_FLOATS, "scalar tables");
@@ -203,14 +227,33 @@ constexpr int DNA_TEAM = 128;
 constexpr int DNA_WARPS = DNA_TEAM / WARP;
 constexpr int TEAM = 256;
 constexpr int TEAM_WARPS = TEAM / WARP;
+// the compile-time instantiations' exponential rows are one lane an entry;
+// the runtime-R one's lanes fill ceil(RK / 32) entries each
 static_assert(K * MAX_R <= WARP, "a warp's lanes fill its exponential row");
 // K = 20: (site, rate) units whose partial sums one barrier publishes: a
-// chunk of RED_UNITS / R sites (RED_UNITS / TEAM tiles)
+// chunk of RED_UNITS / R sites (RED_UNITS / TEAM tiles) up to R = 8; past
+// TEAM_WARPS rates a chunk is one 32-site tile, R * 32 units
+// (red_units)
 constexpr int RED_UNITS = 512;
 static_assert(RED_UNITS % TEAM == 0, "a chunk holds whole tiles");
 constexpr int SMEM_LIMIT_FLOATS = 232448 / 4;  // 227 KB a block may use
 
 __host__ __device__ inline int round32(int n) { return (n + 31) / 32 * 32; }
+
+// K = 4 scalar tables, in floats
+__host__ __device__ inline int dna_tab_floats(int R) {
+  const int n = round32(24 * R + 2 * K * K);
+  return n > TAB_FLOATS ? n : TAB_FLOATS;
+}
+
+// K = 20: rates a warp walks (w, w + 8, ...; one up to R = 8, where
+// TEAM_WARPS / R warps share a rate) and units a reduction buffer holds
+__host__ __device__ inline int rates_per_warp(int R) {
+  return R > TEAM_WARPS ? (R + TEAM_WARPS - 1) / TEAM_WARPS : 1;
+}
+__host__ __device__ inline int red_units(int R) {
+  return R * WARP > RED_UNITS ? R * WARP : RED_UNITS;
+}
 
 __host__ __device__ inline int wide_tab_floats(int ns, int R, bool mix) {
   const int rk = R * ns;
@@ -228,30 +271,51 @@ __host__ __device__ constexpr int dna_t_stride(int rows) {
 // Shared memory of a CTA, in floats, each region on a 32-float boundary
 // (ops/blo_kernel.py::kernel_geometry must match):
 //   tables   x_rk [RK], wA [RK][NS], A and piA ([NS][NS], a mixture's
-//            [RK][NS]) and at K = 4 x_rk^2 [RK]: TAB_FLOATS at K = 4,
+//            [RK][NS]) and at K = 4 x_rk^2 [RK]: dna_tab_floats at K = 4,
 //            wide_tab_floats at K = 20
-//   exps     two rows of 32 floats per warp: e^{x t}, the warp's RK (K = 4)
-//            or its rate's 20 (K = 20)
-//   red      K = 20: [2][3][RED_UNITS] per-unit partial sums, one buffer
+//   exps     two rows per warp, e^{x t}: at K = 4 the RK exponentials, 32
+//            floats or RK rounded up to 32; at K = 20 32 floats for each of
+//            the warp's rates (rates_per_warp)
+//   red      K = 20: [2][3][red_units] per-unit partial sums, one buffer
 //            per chunk parity
 //   slots    [2][2][warps] warp sums, one buffer per reduction parity; at
-//            K = 4 then [2] ints, the next pair's index
+//            K = 4 then [2] ints, the next pair's index, and max |x_rk|
 //   T        [RK (+1)][width] at K = 20, [width][dna_t_stride(RK (+1))]
 //            at K = 4                     (in t_scratch instead: GLOBAL_T)
 struct TeamLayout {
-  int exps, red, slots, t, t_end;
+  int exps, erow, red, slots, t, t_end;
   __host__ __device__ TeamLayout(int ns, int R, bool mix, bool pinv,
                                  int width) {
     const int rk = R * ns;
     const int warps = ns == K ? DNA_WARPS : TEAM_WARPS;
-    exps = ns == K ? TAB_FLOATS : wide_tab_floats(ns, R, mix);
-    red = exps + warps * 2 * 32;
-    slots = red + (ns == K ? 0 : 2 * 3 * RED_UNITS);
-    t = slots + round32(2 * 2 * warps + (ns == K ? 2 : 0));
+    exps = ns == K ? dna_tab_floats(R) : wide_tab_floats(ns, R, mix);
+    erow = ns == K ? (rk > WARP ? round32(rk) : WARP)
+                   : WARP * rates_per_warp(R);
+    red = exps + warps * 2 * erow;
+    slots = red + (ns == K ? 0 : 2 * 3 * red_units(R));
+    t = slots + round32(2 * 2 * warps + (ns == K ? 3 : 0));
     const int rows = rk + (pinv ? 1 : 0);
     t_end = t + round32((ns == K ? dna_t_stride(rows) : rows) * width);
   }
 };
+
+// The guarded snap (ops/newton.py::cancelled): the Newton evaluation at x
+// has cancelled where |d1| * x exceeds 1 + lam_span * x (lam_span: the
+// fastest eigen rate max|x_j| times the pair's span), or is NaN. A site
+// likelihood adds at most ~2/t to d1 near t = 0 and at least -max|x_j|,
+// and a solve stops only where d1 is balanced or points into a bound, well
+// inside that; past it a site likelihood has cancelled in the eigenbasis
+// sum (f32: terms up to 1e8 times larger), and a stop there would leave
+// the length at or near its lower bound and the smoothing would roll the
+// pair back to its initial lengths. Such a stop is not taken: the iterate
+// backs off halfway to x_hi, the last point evaluated soundly with d1 < 0.
+// Nor is such an evaluation's crawling step (d1 > 0, d2 < 0, under x / 8:
+// a sound one near the bound at least doubles x, and the crawl would spend
+// the solve's iterations): x doubles instead.
+__device__ __forceinline__ bool cancelled(float d1, float x,
+                                          float lam_span) {
+  return !(fabsf(d1) * x <= 1.0f + lam_span * x);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: lane i adds v_i + v_{i^m}, lane i^m adds v_{i^m} + v_i,
@@ -296,16 +360,19 @@ __device__ void team_sum(float (&v)[N], float* slots,
   }
 }
 
-template <int R, bool HAS_PINV, bool GLOBAL_T>
+// RC: the rate count, 1..MAX_R at compile time, or 0: R > MAX_R at run time
+// (``nr``; the rate loops rolled, the exponential rows filled in strides)
+template <int RC, bool HAS_PINV, bool GLOBAL_T>
 struct DnaTeamCtx {
-  static constexpr int RK = R * K;
-  static constexpr int TS = dna_t_stride(RK + (HAS_PINV ? 1 : 0));
+  static constexpr bool RUNTIME_R = RC == 0;
+  static constexpr int TSC = dna_t_stride(RC * K + (HAS_PINV ? 1 : 0));
   const float* __restrict__ tu;  // tU row block of this pair's edge [RK, S]
   const float* __restrict__ tv;
   const float* __restrict__ tq;  // tQ row block of this pair's query [K, S]
   const float* __restrict__ iq;  // invq row of this pair's query [S] (+I)
   const float* __restrict__ ls;  // ls row of this pair's edge [S] (+I)
   int S;
+  int nr;                        // rates (RUNTIME_R)
   int begin;
   int span;
   int tid;
@@ -313,9 +380,11 @@ struct DnaTeamCtx {
   int sbuf;                      // slot buffer of the next reduction
   float omp;                     // 1 - pinv (+I)
   float* T;                      // [width][TS], this CTA's
-  float* E0;                     // [32] shared, this warp's exponential rows
-  float* E1;
-  float* slots;                  // [2][2][DNA_WARPS] shared
+  float* E0;                     // [32 | RK] shared, this warp's exponential
+  float* E1;                     //   rows
+  float* slots;                  // [2][2][DNA_WARPS] shared, then [2] ints
+                                 // (the next pair) and max |x_rk| at LAM
+  static constexpr int LAM = 2 * 2 * DNA_WARPS + 2;
   // shared, each on a 16-byte boundary (RK is a multiple of 4)
   const float* xrk;              // [RK]
   const float* x2;               // [RK] x_rk * x_rk
@@ -323,28 +392,53 @@ struct DnaTeamCtx {
   const float* A;                // [K][K]
   const float* piA;              // [K][K]
 
+  __device__ __forceinline__ int rates() const {
+    if constexpr (RUNTIME_R) {
+      return nr;
+    } else {
+      return RC;
+    }
+  }
+  __device__ __forceinline__ int rk() const { return rates() * K; }
+  // floats of T a site
+  __device__ __forceinline__ int ts() const {
+    if constexpr (RUNTIME_R) {
+      return dna_t_stride(rk() + (HAS_PINV ? 1 : 0));
+    } else {
+      return TSC;
+    }
+  }
+
   // f(r) for the rates r = 0 .. R-1 in order: unrolled with T in shared
   // memory; one at a time with T in device memory, where the unrolled
-  // rates' float4 loads in flight take every register and spill
+  // rates' float4 loads in flight take every register and spill, and at a
+  // runtime rate count
   template <class F>
-  __device__ __forceinline__ static void for_rates(F f) {
-    if constexpr (GLOBAL_T) {
+  __device__ __forceinline__ void for_rates(F f) const {
+    if constexpr (GLOBAL_T || RUNTIME_R) {
 #pragma unroll 1
-      for (int r = 0; r < R; ++r) f(r);
+      for (int r = 0; r < rates(); ++r) f(r);
     } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r) f(r);
+      for (int r = 0; r < RC; ++r) f(r);
     }
   }
 
   // E[j] = exp(x_j t) (1 on the zero-eigenvalue lanes, never read) in
-  // this warp's row, lane j filling entry j. The first __syncwarp lets
-  // every lane finish reading the previous values, the second publishes
-  // the new ones. Rate r's four entries are float4 r.
+  // this warp's row, lane j filling entry j (and j + 32, ... at a runtime
+  // rate count). The first __syncwarp lets every lane finish reading the
+  // previous values, the second publishes the new ones. Rate r's four
+  // entries are float4 r.
   __device__ __forceinline__ const float4* exps(float t, float* E) const {
     __syncwarp();
-    if (lane < RK) {
-      E[lane] = (lane % K == K - 1) ? 1.0f : expf(xrk[lane] * t);
+    if constexpr (RUNTIME_R) {
+      for (int j = lane; j < rk(); j += WARP) {
+        E[j] = (j % K == K - 1) ? 1.0f : expf(xrk[j] * t);
+      }
+    } else {
+      if (lane < RC * K) {
+        E[lane] = (lane % K == K - 1) ? 1.0f : expf(xrk[lane] * t);
+      }
     }
     __syncwarp();
     return reinterpret_cast<const float4*>(E);
@@ -353,7 +447,7 @@ struct DnaTeamCtx {
   // window site w of T: rate r's four sums are float4 r, the +I pv
   // follows them
   __device__ __forceinline__ float4* site(int w) const {
-    return reinterpret_cast<float4*>(T + w * TS);
+    return reinterpret_cast<float4*>(T + w * ts());
   }
 
   // h[i] = sum_k coef[i][k] * x[k] (sequential in k, as _blo_compute),
@@ -398,14 +492,14 @@ struct DnaTeamCtx {
   __device__ void fill_pv() {
     for (int w = tid; w < span; w += DNA_TEAM) {
       const int s = begin + w;
-      T[w * TS + RK] = expf(iq[s] - ls[s]);
+      T[w * ts() + rk()] = expf(iq[s] - ls[s]);
     }
   }
 
   // the site likelihood from the eigen-sum f at window site w
   __device__ __forceinline__ float site_g(float f, int w) const {
     if constexpr (HAS_PINV) {
-      return omp * f + T[w * TS + RK];
+      return omp * f + T[w * ts() + rk()];
     } else {
       return f;
     }
@@ -514,6 +608,7 @@ struct DnaTeamCtx {
     const float4* X = reinterpret_cast<const float4*>(xrk);
     const float4* X2 = reinterpret_cast<const float4*>(x2);
     float x = fminf(fmaxf(guess, xmin), xmax);
+    float x_hi = x;      // the last point evaluated soundly with d1 < 0
     float slid = 0.0f;
     bool done = false;
     for (int it = 0; it < MAX_ITERS && !done; ++it) {
@@ -551,11 +646,25 @@ struct DnaTeamCtx {
       const float bound = d1 > 0.0f ? xmax : xmin;
       const float slide =
           snap ? bound : (d1 > 0.0f ? (x + xmax) / 2.0f : (x + xmin) / 2.0f);
-      const float xn =
+      float xn =
           fminf(fmaxf(d2 < 0.0f ? newton_x : slide, xmin), xmax);
       slid = d2 < 0.0f ? 0.0f : dirn;
       done = (fabsf(xn - x) < xtol) || (fabsf(d1) <= D1_EPSILON) ||
              ((d2 < 0.0f) && (d1 * d1 <= GAIN_EPSILON * -d2));
+      const bool bad =
+          cancelled(d1, x, slots[LAM] * static_cast<float>(span));
+      if (bad && !done && d1 > 0.0f && d2 < 0.0f && xn - x < x * 0.125f) {
+        // a cancelled evaluation's step crawls (under x / 8, where a
+        // sound one near the bound at least doubles x): double x
+        xn = fminf(x + x, xmax);
+        slid = 0.0f;
+      }
+      if (done && bad && x < x_hi) {
+        done = false;
+        xn = (x_hi + x) * 0.5f;
+        slid = 0.0f;
+      }
+      if (!bad && d1 < 0.0f) x_hi = x;
       x = xn;
     }
     return x;
@@ -620,18 +729,20 @@ __device__ void solve_pair(const Ctx& c_in, float orig, int max_smoothings,
   counts[1] = iters;
 }
 
-// K = 4 with R rate categories: CTA b takes pair b first (the grid is what
-// the SMs hold at once), then the next untaken pair, gridDim.x +
-// atomicAdd(next_pair, 1), until none is left, every thread of the team
-// holding the same p. ``next_pair`` is 0 at launch. GLOBAL_T: T in
-// t_scratch, one slice per CTA. At most 128 registers a thread with T in
-// shared memory below R = 7 (4 CTAs an SM); R = 7-8 and the device home
-// take what they need, without spill.
-template <int R, bool GLOBAL_T, bool HAS_PINV>
-__global__ void __launch_bounds__(DNA_TEAM, GLOBAL_T || R > 6 ? 1 : 4)
+// K = 4 with RC rate categories (0: ``num_rates``, more than MAX_R): CTA b
+// takes pair b first (the grid is what the SMs hold at once), then the next
+// untaken pair, gridDim.x + atomicAdd(next_pair, 1), until none is left,
+// every thread of the team holding the same p. ``next_pair`` is 0 at
+// launch. GLOBAL_T: T in t_scratch, one slice per CTA. At most 128
+// registers a thread with T in shared memory below R = 7 (4 CTAs an SM);
+// R = 7-8, the runtime rate count and the device home take what they
+// need, without spill.
+template <int RC, bool GLOBAL_T, bool HAS_PINV>
+__global__ void __launch_bounds__(DNA_TEAM,
+                                  GLOBAL_T || RC == 0 || RC > 6 ? 1 : 4)
 blo_newton_dna_kernel(const float* __restrict__ tU,
                       const float* __restrict__ tV,
-                      const float* __restrict__ tQ, int S,
+                      const float* __restrict__ tQ, int S, int num_rates,
                       const float* __restrict__ invq,
                       const float* __restrict__ ls,
                       const float* __restrict__ omp,
@@ -654,8 +765,9 @@ blo_newton_dna_kernel(const float* __restrict__ tU,
                       float* __restrict__ out_done,
                       int* __restrict__ out_smoothings,
                       int* __restrict__ out_iters) {
-  constexpr int RK = R * K;
-  static_assert(R <= MAX_R, "rate categories");
+  static_assert(RC <= MAX_R, "rate categories");
+  const int R = RC ? RC : num_rates;
+  const int RK = R * K;
   const TeamLayout L(K, R, false, HAS_PINV, width);
   extern __shared__ __align__(16) float dna_smem[];
   float* smem = dna_smem;
@@ -673,23 +785,31 @@ blo_newton_dna_kernel(const float* __restrict__ tU,
     s_A[i] = A[i];
     s_piA[i] = piA[i];
   }
+  if (threadIdx.x == 0) {
+    // max |x_rk|, the fastest eigen rate (the guarded snap), in shared
+    // memory after the next-pair ints: a register less through the solve
+    float lam = 0.0f;
+    for (int i = 0; i < RK; ++i) lam = fmaxf(lam, fabsf(x_rk[i]));
+    smem[L.slots + DnaTeamCtx<RC, HAS_PINV, GLOBAL_T>::LAM] = lam;
+  }
   __syncthreads();
 
   const int tid = threadIdx.x;
-  DnaTeamCtx<R, HAS_PINV, GLOBAL_T> c;
+  DnaTeamCtx<RC, HAS_PINV, GLOBAL_T> c;
   c.S = S;
+  c.nr = R;
   c.tid = tid;
   c.lane = tid % WARP;
   c.omp = HAS_PINV ? omp[0] : 1.0f;
   c.iq = nullptr;
   c.ls = nullptr;
-  c.E0 = smem + L.exps + (tid / WARP) * 64;
-  c.E1 = c.E0 + 32;
+  c.E0 = smem + L.exps + (tid / WARP) * 2 * L.erow;
+  c.E1 = c.E0 + L.erow;
   c.slots = smem + L.slots;
   // the next pair's index, two buffers (after the warp slots)
   int* s_next = reinterpret_cast<int*>(smem + L.slots + 2 * 2 * DNA_WARPS);
   if constexpr (GLOBAL_T) {
-    c.T = t_scratch + static_cast<size_t>(blockIdx.x) * c.TS * width;
+    c.T = t_scratch + static_cast<size_t>(blockIdx.x) * c.ts() * width;
   } else {
     c.T = smem + L.t;
   }
@@ -752,7 +872,9 @@ blo_newton_dna_kernel(const float* __restrict__ tU,
 // a team of TEAM threads per pair in one persistent CTA (the design is in
 // the header).
 
-template <int NS, bool MIX, bool HAS_PINV>
+// WALK: more than TEAM_WARPS rates, warp w walking the rates w, w + 8, ...
+// (a build of its own, so the instantiations up to 8 rates keep their code)
+template <int NS, bool MIX, bool HAS_PINV, bool WALK>
 struct TeamCtx {
   // the pair's window rows in device memory (row stride ld = S, site w at
   // column begin + w)
@@ -765,31 +887,58 @@ struct TeamCtx {
   int width;                     // T row stride (>= span)
   int tile;                      // sites per tile: 32 x the warps of a rate
   int chunk;                     // sites per barrier: RED_UNITS / TEAM tiles
+                                 // (one tile past TEAM_WARPS rates)
+  int units;                     // red_units: a reduction buffer's units
   int tid;
   int lane;
-  int rate;                      // this warp's rate (>= R: an idle warp)
+  int rate;                      // this warp's first rate (>= R: idle)
   int site;                      // this thread's site within a tile
   int sbuf;                      // slot buffer of the next reduction
   float omp;                     // 1 - pinv (+I)
+  float lam;                     // max |x_rk|, the fastest eigen rate
   float* T;                      // [RK (+1)][width]
-  float* E0;                     // [32] shared, this warp's exponential rows
-  float* E1;
-  float* red;                    // [2][3][RED_UNITS] shared
+  float* E0;                     // [rates_per_warp][32] shared, this warp's
+  float* E1;                     //   exponential rows, one per rate
+  float* red;                    // [2][3][units] shared
   float* slots;                  // [2][2][TEAM_WARPS] shared
   const float* xrk;              // [RK]         shared
   const float* wA;               // [RK][NS]     shared
   const float* A;                // [NS|RK][NS]  shared
   const float* piA;              // [NS|RK][NS]  shared
 
-  // E[k] = exp(x_{rate*NS+k} t) (1 on the zero-eigenvalue lane, never
-  // read): the warp's own row, lane k filling entry k. The first
-  // __syncwarp lets every lane finish reading the previous values, the
-  // second publishes the new ones; no block barrier.
+  // f(r, j) for the warp's rates: its one rate (none if rate >= R), or
+  // with WALK the rates r = rate + j * TEAM_WARPS < R in order
+  template <class F>
+  __device__ __forceinline__ void for_my_rates(F f) const {
+    if constexpr (WALK) {
+      for (int r = rate, j = 0; r < R; r += TEAM_WARPS, ++j) f(r, j);
+    } else {
+      if (rate < R) f(rate, 0);
+    }
+  }
+
+  // units of a reduction buffer
+  __device__ __forceinline__ int red_stride() const {
+    if constexpr (WALK) {
+      return units;
+    } else {
+      return RED_UNITS;
+    }
+  }
+
+  // E[32 j + k] = exp(x_{r*NS+k} t) for the warp's j-th rate r (1 on the
+  // zero-eigenvalue lane, never read): the warp's own rows, lane k filling
+  // entry k of each. The first __syncwarp lets every lane finish reading
+  // the previous values, the second publishes the new ones; no block
+  // barrier.
   __device__ void exps(float t, float* E) const {
     if (rate >= R) return;  // warp-uniform
     __syncwarp();
     if (lane < NS) {
-      E[lane] = (lane == NS - 1) ? 1.0f : expf(xrk[rate * NS + lane] * t);
+      for_my_rates([&](int r, int j) {
+        E[j * WARP + lane] =
+            (lane == NS - 1) ? 1.0f : expf(xrk[r * NS + lane] * t);
+      });
     }
     __syncwarp();
   }
@@ -808,14 +957,15 @@ struct TeamCtx {
 
   // T1 (T2 false): contract(wA-bt(tU e^{x la}), A-bt(tV e^{x lb})) * tQ
   // T2 (T2 true):  contract(wA-bt(tU e^{x la}), A-bt(tQ e^{x lb})) * tV
-  // Each thread builds the units (site, its rate) w = site, site + tile,
-  // ...; the barrier at the end publishes T.
+  // Each thread builds the units (site, each of its warp's rates) w =
+  // site, site + tile, ...; the barrier at the end publishes T.
   template <bool T2>
   __device__ void build(float la, float lb) {
     exps(la, E0);
     exps(lb, E1);
-    if (rate < R) {
-      const int r = rate;
+    for_my_rates([&](int r, int jr) {
+      const float* e0 = E0 + jr * WARP;
+      const float* e1 = E1 + jr * WARP;
       for (int w = site; w < span; w += tile) {
         // a barrier for the compiler only: it keeps ptxas from hoisting
         // a single matrix's 2 K^2 loop-invariant coefficients out of the
@@ -831,8 +981,8 @@ struct TeamCtx {
           u[k] = wu[j * ld + w];
           v[k] = T2 ? wq[(MIX ? j : k) * ld + w] : wv[j * ld + w];
           if (k != NS - 1) {
-            u[k] *= E0[k];
-            v[k] *= E1[k];
+            u[k] *= e0[k];
+            v[k] *= e1[k];
           }
         }
 #pragma unroll
@@ -857,7 +1007,7 @@ struct TeamCtx {
           T[j * width + w] = acc[k] * o;
         }
       }
-    }
+    });
     __syncthreads();
   }
 
@@ -876,19 +1026,20 @@ struct TeamCtx {
     float acc[1] = {0.0f};
     int buf = 0;
     for (int base = 0; base < span; base += chunk, buf ^= 1) {
-      float* part = red + buf * 3 * RED_UNITS;
+      float* part = red + buf * 3 * red_stride();
       const int end = min(base + chunk, span);
-      if (rate < R) {
+      for_my_rates([&](int r, int jr) {
+        const float* e = E0 + jr * WARP;
         for (int w = base + site; w < end; w += tile) {
           float f = 0.0f;
 #pragma unroll
           for (int k = 0; k < NS; ++k) {
-            const float t = T[(rate * NS + k) * width + w];
-            f += (k == NS - 1) ? t : t * E0[k];
+            const float t = T[(r * NS + k) * width + w];
+            f += (k == NS - 1) ? t : t * e[k];
           }
-          part[rate * chunk + w - base] = f;
+          part[r * chunk + w - base] = f;
         }
-      }
+      });
       __syncthreads();
       if (tid < tile) {
         for (int ws = base + tid; ws < end; ws += tile) {
@@ -908,10 +1059,12 @@ struct TeamCtx {
   __device__ float newton(float xmin, float xmax, float xtol, float guess,
                           int& iters) {
     float x = fminf(fmaxf(guess, xmin), xmax);
+    float x_hi = x;      // the last point evaluated soundly with d1 < 0
     float slid = 0.0f;
     bool done = false;
     const int rc = R * chunk;
-    // the rate's exponent lanes, in registers for the whole solve
+    // the rate's exponent lanes, in registers for the whole solve (with
+    // WALK each rate's in turn)
     float xs[NS - 1];
 #pragma unroll
     for (int k = 0; k < NS - 1; ++k) {
@@ -923,30 +1076,35 @@ struct TeamCtx {
       float d[2] = {0.0f, 0.0f};
       int buf = 0;
       for (int base = 0; base < span; base += chunk, buf ^= 1) {
-        float* part = red + buf * 3 * RED_UNITS;
+        float* part = red + buf * 3 * red_stride();
         const int end = min(base + chunk, span);
-        if (rate < R) {
+        for_my_rates([&](int r, int jr) {
+          const float* e = E0 + jr * WARP;
+          if constexpr (WALK) {
+#pragma unroll
+            for (int k = 0; k < NS - 1; ++k) xs[k] = xrk[r * NS + k];
+          }
           for (int w = base + site; w < end; w += tile) {
             float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
-              const float t = T[(rate * NS + k) * width + w];
+              const float t = T[(r * NS + k) * width + w];
               if (k == NS - 1) {
                 f0 += t;  // zero-eigenvalue lane: x_j == 0 exactly
               } else {
                 const float xj = xs[k];
-                const float tE = t * E0[k];
+                const float tE = t * e[k];
                 f0 += tE;
                 f1 += tE * xj;
                 f2 += tE * (xj * xj);
               }
             }
-            const int u = rate * chunk + w - base;
+            const int u = r * chunk + w - base;
             part[u] = f0;
             part[rc + u] = f1;
             part[2 * rc + u] = f2;
           }
-        }
+        });
         __syncthreads();
         if (tid < tile) {
           for (int ws = base + tid; ws < end; ws += tile) {
@@ -978,11 +1136,24 @@ struct TeamCtx {
       const float bound = d1 > 0.0f ? xmax : xmin;
       const float slide =
           snap ? bound : (d1 > 0.0f ? (x + xmax) / 2.0f : (x + xmin) / 2.0f);
-      const float xn =
+      float xn =
           fminf(fmaxf(d2 < 0.0f ? newton_x : slide, xmin), xmax);
       slid = d2 < 0.0f ? 0.0f : dirn;
       done = (fabsf(xn - x) < xtol) || (fabsf(d1) <= D1_EPSILON) ||
              ((d2 < 0.0f) && (d1 * d1 <= GAIN_EPSILON * -d2));
+      const bool bad = cancelled(d1, x, lam * static_cast<float>(span));
+      if (bad && !done && d1 > 0.0f && d2 < 0.0f && xn - x < x * 0.125f) {
+        // a cancelled evaluation's step crawls (under x / 8, where a
+        // sound one near the bound at least doubles x): double x
+        xn = fminf(x + x, xmax);
+        slid = 0.0f;
+      }
+      if (done && bad && x < x_hi) {
+        done = false;
+        xn = (x_hi + x) * 0.5f;
+        slid = 0.0f;
+      }
+      if (!bad && d1 < 0.0f) x_hi = x;
       x = xn;
     }
     return x;
@@ -992,8 +1163,8 @@ struct TeamCtx {
 // K = NS states with a runtime rate count R: CTA b takes pairs b, b + grid,
 // ... (the grid is what the SMs hold at once), every thread of the team
 // holding the same p, so no thread diverges on it. GLOBAL_T: T in
-// t_scratch, one slice per CTA.
-template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV>
+// t_scratch, one slice per CTA. WALK: R > TEAM_WARPS (TeamCtx).
+template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV, bool WALK>
 __global__ void __launch_bounds__(TEAM, 1)
 blo_newton_team_kernel(const float* __restrict__ tU,
                        const float* __restrict__ tV,
@@ -1037,24 +1208,30 @@ blo_newton_team_kernel(const float* __restrict__ tU,
     s_piA[i] = piA[i];
   }
   __syncthreads();
+  float lam = 0.0f;
+  for (int i = 0; i < RK; ++i) lam = fmaxf(lam, fabsf(s_x[i]));
 
   const int tid = threadIdx.x;
   const int warp = tid / WARP;
   const int lane = tid % WARP;
-  const int per_rate = TEAM_WARPS / R;  // warps of a rate
-  TeamCtx<NS, MIX, HAS_PINV> c;
+  // warps of a rate up to TEAM_WARPS rates; past them (WALK) warp w walks
+  // the rates w, w + TEAM_WARPS, ..., a chunk one tile of 32 sites
+  const int per_rate = WALK ? 1 : TEAM_WARPS / R;
+  TeamCtx<NS, MIX, HAS_PINV, WALK> c;
   c.ld = S;
   c.R = R;
   c.width = width;
   c.tile = per_rate * WARP;
-  c.chunk = c.tile * (RED_UNITS / TEAM);
+  c.chunk = WALK ? WARP : c.tile * (RED_UNITS / TEAM);
+  c.units = red_units(R);
   c.tid = tid;
   c.lane = lane;
   c.rate = warp / per_rate;
   c.site = (warp % per_rate) * WARP + lane;
   c.omp = HAS_PINV ? omp[0] : 1.0f;
-  c.E0 = smem + L.exps + warp * 64;
-  c.E1 = c.E0 + 32;
+  c.lam = lam;
+  c.E0 = smem + L.exps + warp * 2 * L.erow;
+  c.E1 = c.E0 + L.erow;
   c.red = smem + L.red;
   c.slots = smem + L.slots;
   if constexpr (GLOBAL_T) {
@@ -1182,23 +1359,25 @@ int persistent_grid(Kernel kernel, int threads, bool global_t,
 }
 
 // the sumtable's home: shared memory where T fits, else (``device_t``: a
-// t_scratch given) device memory; with ``a`` null only geo is filled
-template <int R>
-int launch_dna(const Args* a, int width, bool device_t, int* geo,
+// t_scratch given) device memory; with ``a`` null only geo is filled. RC:
+// the instantiation's rate count (0: R, past MAX_R, at run time)
+template <int RC>
+int launch_dna(const Args* a, int R, int width, bool device_t, int* geo,
                cudaStream_t stream) {
   constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
   const TeamLayout L(K, R, false, HAS_PINV, width);
   if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
-  const auto kernel = device_t ? blo_newton_dna_kernel<R, true, HAS_PINV>
-                               : blo_newton_dna_kernel<R, false, HAS_PINV>;
+  const auto kernel = device_t ? blo_newton_dna_kernel<RC, true, HAS_PINV>
+                               : blo_newton_dna_kernel<RC, false, HAS_PINV>;
   const int smem_floats = device_t ? L.t : L.t_end;
   int grid = 0;
   const int rc = persistent_grid(kernel, DNA_TEAM, device_t, a, smem_floats,
                                  geo, &grid);
   if (rc != 0 || a == nullptr) return rc;
   kernel<<<grid, DNA_TEAM, smem_floats * sizeof(float), stream>>>(
-      a->tU, a->tV, a->tQ, a->S, a->invq, a->ls, a->omp, a->e_ids, a->q_ids,
-      a->begins, a->spans, a->orig_len, a->skip, a->x_rk, a->wA, a->A,
+      a->tU, a->tV, a->tQ, a->S, R, a->invq, a->ls, a->omp, a->e_ids,
+      a->q_ids, a->begins, a->spans, a->orig_len, a->skip, a->x_rk, a->wA,
+      a->A,
       a->piA, a->P, a->width, a->max_smoothings, a->t_scratch, a->next_pair,
       a->logl, a->pendant, a->distal, a->proximal, a->done, a->smoothings,
       a->iters);
@@ -1211,9 +1390,14 @@ int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
   constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
   const TeamLayout L(20, R, MIX, HAS_PINV, width);
   if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
+  constexpr int N = 20;
+  const bool walk = R > TEAM_WARPS;
   const auto kernel =
-      device_t ? blo_newton_team_kernel<20, MIX, true, HAS_PINV>
-               : blo_newton_team_kernel<20, MIX, false, HAS_PINV>;
+      device_t ? (walk ? blo_newton_team_kernel<N, MIX, true, HAS_PINV, true>
+                       : blo_newton_team_kernel<N, MIX, true, HAS_PINV, false>)
+               : (walk ? blo_newton_team_kernel<N, MIX, false, HAS_PINV, true>
+                       : blo_newton_team_kernel<N, MIX, false, HAS_PINV,
+                                                false>);
   const int smem_floats = device_t ? L.t : L.t_end;
   int grid = 0;
   const int rc = persistent_grid(kernel, TEAM, device_t, a, smem_floats, geo,
@@ -1231,7 +1415,13 @@ int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
 int blo_newton_team(const Args* a, int num_states, int R, int mixture,
                     int width, bool device_t, int* geo,
                     cudaStream_t stream) {
-  if (R < 1 || R > MAX_R || width < 1) return -1;
+  // the rate cap: the tables (and rows and buffers) beside one 32-site
+  // tile of T with +I must fit (ops/blo_kernel.py::max_rates)
+  if (R < 1 || width < 1 || (num_states != K && num_states != 20) ||
+      TeamLayout(num_states, R, mixture, true, WARP).t_end >
+          SMEM_LIMIT_FLOATS) {
+    return -1;
+  }
   if (num_states == 20) {
     if (mixture) {
 #if BLO_HAS_PINV
@@ -1244,15 +1434,15 @@ int blo_newton_team(const Args* a, int num_states, int R, int mixture,
   }
   if (num_states != K || mixture) return -1;
   switch (R) {
-    case 1: return launch_dna<1>(a, width, device_t, geo, stream);
-    case 2: return launch_dna<2>(a, width, device_t, geo, stream);
-    case 3: return launch_dna<3>(a, width, device_t, geo, stream);
-    case 4: return launch_dna<4>(a, width, device_t, geo, stream);
-    case 5: return launch_dna<5>(a, width, device_t, geo, stream);
-    case 6: return launch_dna<6>(a, width, device_t, geo, stream);
-    case 7: return launch_dna<7>(a, width, device_t, geo, stream);
-    case 8: return launch_dna<8>(a, width, device_t, geo, stream);
-    default: return -1;
+    case 1: return launch_dna<1>(a, 1, width, device_t, geo, stream);
+    case 2: return launch_dna<2>(a, 2, width, device_t, geo, stream);
+    case 3: return launch_dna<3>(a, 3, width, device_t, geo, stream);
+    case 4: return launch_dna<4>(a, 4, width, device_t, geo, stream);
+    case 5: return launch_dna<5>(a, 5, width, device_t, geo, stream);
+    case 6: return launch_dna<6>(a, 6, width, device_t, geo, stream);
+    case 7: return launch_dna<7>(a, 7, width, device_t, geo, stream);
+    case 8: return launch_dna<8>(a, 8, width, device_t, geo, stream);
+    default: return launch_dna<0>(a, R, width, device_t, geo, stream);
   }
 }
 
@@ -1260,9 +1450,11 @@ int blo_newton_team(const Args* a, int num_states, int R, int mixture,
 
 extern "C" {
 
-// Returns 0 or a cudaError_t code. num_states (4 or 20), num_rates (1-8)
-// and mixture (per-rate A/piA [RK][K] and tQ [Q, RK, S]; K = 20 only, and
-// not in the +I library) select the instantiation, RK = num_states *
+// Returns 0 or a cudaError_t code. num_states (4 or 20), num_rates (1 to
+// the cap of ops/blo_kernel.py::max_rates; past 8 the K = 4 runtime-R
+// instantiation and the K = 20 WALK build) and mixture (per-rate A/piA
+// [RK][K] and tQ [Q, RK, S]; K = 20 only, and not in the +I library)
+// select the instantiation, RK = num_states *
 // num_rates; -1 means an unsupported combination, -2 a missing +I input,
 // -3 a sumtable too wide for shared memory without a t_scratch. At most
 // ``blocks`` persistent CTAs; t_scratch is null (T in shared memory) or
@@ -1315,7 +1507,8 @@ int blo_newton_team_geometry(int num_states, int num_rates, int mixture,
 const char* blo_newton_error_string(int code) {
   if (code == -1) {
     return "unsupported state count, rate count or mixture (4 or 20 "
-           "states, 1-8 rates, mixtures at 20 states without +I)";
+           "states, the rates whose tables fit shared memory beside a "
+           "32-site tile of T, mixtures at 20 states without +I)";
   }
   if (code == -2) {
     return "missing +I input, counter output or K = 4 pair counter";

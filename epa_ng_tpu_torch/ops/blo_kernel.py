@@ -10,8 +10,11 @@ window out of the full site-last stores by edge and query id. +I is a
 template flag (built as a second library), the counters an optional
 output. It is instantiated for DNA (K = 4) and protein (K = 20), and at
 K = 20 for matrix mixtures (LG4M/LG4X: per-rate coefficient tables and a
-per-category query tip), as ``_blo_compute`` is. Its interface is
-:data:`blo_newton`:
+per-category query tip), as ``_blo_compute`` is, at 1 to
+:data:`MAX_RATES` rate categories (past 8: the K = 4 runtime-R
+instantiation, the K = 20 team's warps walking rates). Its Newton solves
+carry the guarded snap (``ops.newton.cancelled``), which the TPU kernel
+lacks. Its interface is :data:`blo_newton`:
 
     tU, tV [E, RK, S], tQ [Q, Kq, S]     full stores (f32, contiguous);
                                          Kq = K, or RK for a mixture
@@ -65,10 +68,13 @@ import torch
 from epa_ng_tpu_torch.ops.newton import (BRLEN_DEFAULT, BRLEN_MAX, BRLEN_MIN,
                                          D1_EPSILON, DEFAULT_PENDANT,
                                          GAIN_EPSILON, MAX_ITERS,
-                                         OPT_BRANCH_EPSILON, SMOOTHINGS)
+                                         OPT_BRANCH_EPSILON, SMOOTHINGS,
+                                         cancelled)
 
 K_STATES = (4, 20)  # DNA and protein instantiations of the kernel
-MAX_RATES = 8       # rate categories the kernel takes (csrc/blo_newton.cu)
+# K = 4 rate counts with a compile-time instantiation (csrc/blo_newton.cu
+# MAX_R); more rates take the runtime-R one
+STATIC_RATES = 8
 PB = 128            # pair-padding granule of the engine's control flow
 # threads per pair, one persistent CTA each (csrc/blo_newton.cu DNA_TEAM,
 # TEAM): K = 4 and K = 20. A CTA keeps one pair's sumtable T ([RK (+1),
@@ -99,12 +105,13 @@ def _round32(n: int) -> int:
 
 def _tab_bytes(k: int, r: int, mixture: bool = False) -> int:
     """Bytes of the scalar tables at the head of the kernel's shared memory,
-    as csrc/blo_newton.cu lays them out: 224 floats for every DNA
-    instantiation (TAB_FLOATS: x_rk, wA, A, piA and x_rk^2 at R = 8); at
-    K = 20 x_rk, wA and A, piA ([K, K], or [RK, K] for a mixture), rounded
-    up to 32 floats (``wide_tab_floats``)."""
+    as csrc/blo_newton.cu lays them out: at K = 4 x_rk, wA, A, piA and
+    x_rk^2, 24 R + 32 floats rounded up to 32, and never fewer than R = 8's
+    224 (TAB_FLOATS, every compile-time instantiation; ``dna_tab_floats``);
+    at K = 20 x_rk, wA and A, piA ([K, K], or [RK, K] for a mixture),
+    rounded up to 32 floats (``wide_tab_floats``)."""
     if k == 4:
-        return 224 * 4
+        return max(224, _round32(24 * r + 32)) * 4
     rk = r * k
     floats = rk + rk * k + (2 * rk * k if mixture else 2 * k * k)
     return _round32(floats) * 4
@@ -115,20 +122,37 @@ def _team(k: int) -> int:
     return DNA_TEAM if k == 4 else WIDE_TEAM
 
 
-def _exp_bytes(k: int) -> int:
-    """Shared memory of a CTA for its exponential rows e^{x t}: two rows of
-    32 floats per warp (the RK exponentials at K = 4, the warp's rate's 20
-    at K = 20)."""
-    return _team(k) // 32 * 2 * 32 * 4
+def _rates_per_warp(r: int) -> int:
+    """K = 20: rates a warp walks, w, w + 8, ... past 8 rates (up to 8,
+    8 / R warps share one rate)."""
+    warps = WIDE_TEAM // 32
+    return -(-r // warps) if r > warps else 1
 
 
-def _red_bytes(k: int) -> int:
+def _exp_bytes(k: int, r: int = 1) -> int:
+    """Shared memory of a CTA for its exponential rows e^{x t}, two per
+    warp: at K = 4 the RK exponentials, 32 floats (RK rounded up to 32
+    past 8 rates, each lane filling every 32nd entry); at K = 20 32 floats
+    for each rate the warp walks."""
+    row = (max(32, _round32(4 * r)) if k == 4
+           else 32 * _rates_per_warp(r))
+    return _team(k) // 32 * 2 * row * 4
+
+
+def _red_units(r: int) -> int:
+    """K = 20: (site, rate) units of a reduction buffer: RED_UNITS, or a
+    32-site chunk of every rate past 16 rates (``red_units``)."""
+    return max(RED_UNITS, 32 * r)
+
+
+def _red_bytes(k: int, r: int = 1) -> int:
     """Shared memory of a CTA for its reductions: warp slots [2][2][warps]
-    (at K = 4 and two ints more, the next pair's index; rounded up to 32
-    floats) and, at K = 20, per-unit partial sums [2][3][RED_UNITS]."""
+    (at K = 4 then two ints, the next pair's index, and max |x_rk|;
+    rounded up to 32 floats) and, at K = 20, per-unit partial sums
+    [2][3][units]."""
     if k == 4:
-        return _round32(4 * DNA_TEAM // 32 + 2) * 4
-    return (6 * RED_UNITS + _round32(4 * WIDE_TEAM // 32)) * 4
+        return _round32(4 * DNA_TEAM // 32 + 3) * 4
+    return (6 * _red_units(r) + _round32(4 * WIDE_TEAM // 32)) * 4
 
 
 def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
@@ -145,7 +169,27 @@ def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
 def _team_fixed_bytes(k: int, R: int, mixture: bool) -> int:
     """A CTA's shared memory ahead of T: tables, exponential rows,
     reduction buffers."""
-    return _tab_bytes(k, R, mixture) + _exp_bytes(k) + _red_bytes(k)
+    return _tab_bytes(k, R, mixture) + _exp_bytes(k, R) + _red_bytes(k, R)
+
+
+def max_rates(num_states: int, mixture: bool = False) -> int:
+    """The most rate categories the kernel takes at ``num_states`` (and
+    for a matrix mixture): the largest R whose tables, exponential rows and
+    reduction buffers fit shared memory beside one 32-site tile of T with
+    the +I row (csrc/blo_newton.cu ``blo_newton_team`` refuses past it).
+    312 at K = 4, 43 at K = 20, 27 for a mixture."""
+    fits = lambda r: (_team_fixed_bytes(num_states, r, mixture)
+                      + _round32(_t_stride(num_states, num_states * r, True)
+                                 * 32) * 4 <= SMEM_PER_BLOCK)
+    r = 1
+    while fits(r + 1):
+        r += 1
+    return r
+
+
+# the rate cap per (state count, mixture)
+MAX_RATES = {(k, m): max_rates(k, m) for k, m in ((4, False), (20, False),
+                                                  (20, True))}
 
 
 def kernel_geometry(num_states: int, R: int, width: int,
@@ -203,17 +247,20 @@ def kernel_width(spans) -> int:
 def blo_unsupported(consts, sliding: bool = True):
     """Why the CUDA kernel cannot take this model, or None: it takes DNA
     (K = 4) and protein (K = 20) with one substitution matrix, and
-    protein matrix mixtures (LG4M/LG4X), with 1..MAX_RATES rate
-    categories, with or without +I (the engine takes no +I with a
-    mixture), f32 and sliding BLO, at any window width."""
+    protein matrix mixtures (LG4M/LG4X), with 1 to :data:`MAX_RATES` rate
+    categories (312 at K = 4, 43 at K = 20, 27 for a mixture), with or
+    without +I (the engine takes no +I with a mixture), f32 and sliding
+    BLO, at any window width."""
     k = int(consts.A.shape[-1])
     r = int(consts.rates.shape[0])
     if not sliding:
         return "non-sliding (--raxml-blo) BLO"
     if k not in K_STATES:
         return f"{k}-state models"
-    if r > MAX_RATES:
-        return f"{r} rate categories (the kernel takes 1..{MAX_RATES})"
+    cap = MAX_RATES[(k, consts.A.ndim == 3 and r > 1)]
+    if r > cap:
+        return (f"{r} rate categories (the kernel takes 1..{cap} at "
+                f"{k} states{' for a mixture' if consts.A.ndim == 3 else ''})")
     if consts.A.dtype != torch.float32:
         return f"{consts.A.dtype} stores (the kernel is f32)"
     return None
@@ -331,6 +378,7 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
     x_rk, wA, A, piA = tables
     dtype = tU.dtype
     tiny = torch.finfo(dtype).tiny
+    lam = torch.abs(x_rk).max()          # the fastest eigen rate
     K = A.shape[-1]
     RK = x_rk.shape[0]
     R = RK // K
@@ -430,11 +478,13 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
 
     def newton(T, m, pv_, xmin, xmax, xtol, guess):
         x = torch.minimum(torch.maximum(guess, xmin), xmax)
+        span = m.sum(1)
         n = x.shape[0]
         done = torch.zeros(n, dtype=torch.bool, device=x.device)
         iters = torch.zeros(n, dtype=torch.int64, device=x.device)
         slid = torch.zeros_like(x)
         one = torch.ones_like(x)
+        x_hi = x
         for _ in range(MAX_ITERS):
             if bool(done.all()):
                 break
@@ -461,6 +511,20 @@ def blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
             conv = ((torch.abs(xn - x) < xtol)
                     | (torch.abs(d1) <= D1_EPSILON)
                     | ((d2 < 0) & (d1 * d1 <= GAIN_EPSILON * -d2)))
+            # the guarded snap (ops.newton.cancelled): a stop on a cancelled
+            # evaluation backs off halfway to x_hi, the last point evaluated
+            # soundly with d1 < 0, and its crawling step doubles x
+            bad = cancelled(d1, x, lam * span)
+            # a cancelled evaluation's crawling step: x doubles instead
+            crawl = (bad & ~conv & (d1 > 0) & (d2 < 0)
+                     & (xn - x < x * 0.125))
+            xn = torch.where(crawl, torch.minimum(x + x, xmax), xn)
+            slid = torch.where(crawl, torch.zeros_like(x), slid)
+            back = conv & bad & (x < x_hi)
+            conv = conv & ~back
+            xn = torch.where(back, (x_hi + x) * 0.5, xn)
+            slid = torch.where(back, torch.zeros_like(x), slid)
+            x_hi = torch.where(~done & ~bad & (d1 < 0), x, x_hi)
             iters = iters + (~done).long()
             x = torch.where(done, x, xn)
             done = done | conv
@@ -576,7 +640,9 @@ def blo_byte_count(spans, num_rates: int, has_pinv: bool = False,
 class _BloNewton:
     """The CUDA kernel behind a callable. Launch counts (never plain-version
     calls): ``launches`` all launches, ``pinv_launches`` those with the +I
-    term (K2/K4), ``counted_launches`` those with the K5 counters on, and
+    term (K2/K4), ``counted_launches`` those with the K5 counters on,
+    ``past8_launches`` those at more than 8 rate categories (the K = 4
+    runtime-R instantiation, the K = 20 team's warps walking rates), and
     one count per instantiation family: ``k4_launches`` (DNA),
     ``k20_launches`` (protein, one matrix) and ``mixture_launches``
     (protein matrix mixtures). The two shared libraries (without and with
@@ -587,7 +653,8 @@ class _BloNewton:
     ``chip_smoke.py --fmad-ab`` turns it on."""
 
     _COUNTS = ("launches", "pinv_launches", "counted_launches",
-               "k4_launches", "k20_launches", "mixture_launches")
+               "past8_launches", "k4_launches", "k20_launches",
+               "mixture_launches")
 
     def __init__(self, fmad: bool = False):
         self._counts = dict.fromkeys(self._COUNTS, 0)
@@ -713,7 +780,7 @@ class _BloNewton:
         if mixture and (K != 20 or has_pinv):
             raise ValueError("blo_newton: matrix mixtures take 20 states "
                              "and no +I")
-        if R > MAX_RATES or width < 1:
+        if R > MAX_RATES[(K, mixture)] or width < 1:
             raise ValueError(f"blo_newton: unsupported RK={RK} or "
                              f"width={width}")
         if has_pinv and (ls is None or omp is None
@@ -774,7 +841,9 @@ class _BloNewton:
                   else "k4_launches" if K == 4 else "k20_launches")
         with self._count_lock:
             for key, on in (("launches", True), ("pinv_launches", has_pinv),
-                            ("counted_launches", counters), (family, True)):
+                            ("counted_launches", counters),
+                            ("past8_launches", R > STATIC_RATES),
+                            (family, True)):
                 self._counts[key] += on
         return tuple(outs + counts)
 

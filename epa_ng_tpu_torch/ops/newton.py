@@ -152,11 +152,43 @@ def _vec(x, like: torch.Tensor) -> torch.Tensor:
                            device=like.device).expand(like.shape)
 
 
+def cancelled(d1, x, lam_span):
+    """The guarded snap: True where the Newton evaluation at ``x`` rests on
+    a site likelihood that has cancelled, so a stop there must not be taken
+    (NaN counts as cancelled). ``lam_span`` is max|x_j| (the fastest eigen
+    rate) times the pair's span.
+
+    A site likelihood f(t) ~ a + b t (a >= 0) near t = 0 adds at most ~2/t
+    to dlogl/dt, and at least -max|x_j| anywhere; a solve stops only where
+    d1 is balanced (a step under xtol, a small decrement) or points into a
+    bound, which keeps |d1| * x well below 1 + max|x_j| * span * x. But f
+    near t = 0 is a sum of eigenbasis terms up to 1e8 times larger than f,
+    and in f32 it cancels to noise (tiny, zero or negative and clamped to
+    FLT_MIN): d1 and d2 explode by orders of magnitude, the step falls
+    under xtol, the solve stops at or just above the lower bound, and the
+    smoothing then rolls the pair back to its initial lengths (the stall);
+    or, cancelled by less, the step crawls at a tenth of x, spends the
+    solve's iterations and leaves the length short. The test flags some
+    sound evaluations near the bound too (|d1| * x up to ~2 a dominated
+    site); the Newton acts on it only at a stop or a crawl, which sound
+    evaluations do not make there. f64 cancels far more rarely (a K = 20
+    site at 1e-11 of its terms), and the guard repairs the same stall
+    there."""
+    return ~(torch.abs(d1) * x <= 1.0 + lam_span * x)
+
+
 def _newton(c: EigConsts, T, pinv_lin, site_mask, xmin, xmax, xtol, xguess):
     """Maximize logl(t) = sum_s m_s log((1-p) f_s(t) + pinv_lin_s) per pair,
     f_s(t) = sum_j T[j,s] exp(x_j t); safeguarded Newton on dlogl/dt.
-    T: [B, R*K, W] sumtables; bounds scalar or [B]; xguess [B]."""
+    T: [B, R*K, W] sumtables; bounds scalar or [B]; xguess [B].
+
+    Guarded snap: a stop whose evaluation has cancelled (:func:`cancelled`)
+    is not taken; the iterate backs off halfway to ``x_hi``, the last point
+    evaluated soundly with d1 < 0 (the guess to start), and goes on. Nor is
+    such an evaluation's crawling step (d1 > 0, d2 < 0, under x / 8, where
+    a sound evaluation near the bound steps at least x): x doubles."""
     x_j = _x_flat(c)                                  # [RK]
+    lam_span = torch.abs(x_j).max() * site_mask.sum(-1)
     omp = 1.0 - c.pinv
     tiny = torch.finfo(T.dtype).tiny
     xmin, xmax = _vec(xmin, xguess), _vec(xmax, xguess)
@@ -174,6 +206,7 @@ def _newton(c: EigConsts, T, pinv_lin, site_mask, xmin, xmax, xtol, xguess):
         return d1, d2
 
     x = torch.minimum(torch.maximum(xguess, xmin), xmax)
+    x_hi = x
     done = torch.zeros_like(x, dtype=torch.bool)
     slid = torch.zeros_like(x)
     one = torch.ones_like(x)
@@ -197,6 +230,16 @@ def _newton(c: EigConsts, T, pinv_lin, site_mask, xmin, xmax, xtol, xguess):
         converged = ((torch.abs(xnew - x) < xtol)
                      | (torch.abs(d1) <= D1_EPSILON)
                      | ((d2 < 0) & (d1 * d1 <= GAIN_EPSILON * -d2)))
+        bad = cancelled(d1, x, lam_span)
+        crawl = (bad & ~converged & (d1 > 0) & (d2 < 0)
+                 & (xnew - x < x * 0.125))
+        xnew = torch.where(crawl, torch.minimum(x + x, xmax), xnew)
+        slid = torch.where(crawl, torch.zeros_like(slid), slid)
+        back = converged & bad & (x < x_hi)
+        converged = converged & ~back
+        xnew = torch.where(back, (x_hi + x) * 0.5, xnew)
+        slid = torch.where(back, torch.zeros_like(slid), slid)
+        x_hi = torch.where(~done & ~bad & (d1 < 0), x, x_hi)
         x = torch.where(done, x, xnew)
         done = done | converged
     return x

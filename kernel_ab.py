@@ -11,8 +11,15 @@ main-path pairs at the main path's width, drawn as ``chip_smoke.py``'s
 parity phases draw them: the K = 4 kernel on the DNA headline pairs
 (GTR+G4) and the +I kernel on the +I cell's (GTR+I{0.2}+G4, 20% of the
 columns invariant), each at 4096 pairs and at 1024 (about one launch of
-the main path), and the K = 20 kernel on 4096 protein (LG+G4{0.8}) and
-4096 mixture pairs. The timer is this script's (``chip_smoke.cuda_ms``'s:
+the main path), the K = 20 kernel on 4096 protein (LG+G4{0.8}), protein
++I (LG+I{0.2}+G4{0.8}, 20% of the columns invariant) and mixture pairs,
+and at 16 rate categories on 4096 pairs each: GTR+G16 and GTR+I{0.2}+G16
+on the DNA and +I pairs, LG+G16{0.8} on the protein pairs (a root whose
+kernel refuses 16 rates reports null there). On its first round each
+root also reports, per case, the pairs whose kernel logl is off its own
+f64 plain version by more than 0.05 (``pairs_off_f64``, chip_smoke's
+count), so a root before a change to the Newton's arithmetic shows what
+the change moved. The timer is this script's (``chip_smoke.cuda_ms``'s:
 CUDA events around ``reps`` calls after one warm-up call, the device
 first spinning for a head start so that the window holds its work and
 not the host's launch time), so every root shares it. Each round runs
@@ -31,7 +38,14 @@ import sys
 HEAD_START_CYCLES = 100_000_000  # chip_smoke.HEAD_START_CYCLES
 
 CASES = ("dna_4096", "dna_1024", "pinv_4096", "pinv_1024", "protein",
-         "mixture")
+         "protein_pinv", "mixture", "g16_4096", "g16_pinv_4096",
+         "protein_g16")
+G16 = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G16{0.6}"
+G16_PINV = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
+            "+G16{0.6}")
+AA_PINV = "LG+I{0.2}+G4{0.8}"
+AA_G16 = "LG+G16{0.8}"
+LOGL_ABS_TOL = 0.05      # chip_smoke.LOGL_ABS_TOL
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -51,8 +65,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_root(root: str, reps: int) -> dict:
-    """One checkout's blocked-call times on every case's pairs."""
+def time_root(root: str, reps: int, parity: bool) -> dict:
+    """One checkout's blocked-call times on every case's pairs (null where
+    its kernel refuses the model), and with ``parity`` its pairs off its
+    own f64 plain version."""
     sys.path.insert(0, root)
     import torch
 
@@ -64,6 +80,9 @@ def time_root(root: str, reps: int) -> dict:
     adata, _ = cs.make_data(256, 256, 2048, 0,
                             os.path.join(cs.OUT, "data_aa"),
                             model=cs.AA_MODEL, alphabet=cs.AA)
+    apdata, _ = cs.make_pinv_data(adata, 0,
+                                  os.path.join(cs.OUT, "data_aa_pinv"),
+                                  cs.lg_freqs(), cs.AA)
     cs.register_mixture()
     mdata, _ = cs.make_random_data(128, 256, 1024, 13,
                                    os.path.join(cs.OUT, "data_mix"))
@@ -74,7 +93,11 @@ def time_root(root: str, reps: int) -> dict:
             ("pinv_4096", pdata, cs.PINV_MODEL, 4096),
             ("pinv_1024", pdata, cs.PINV_MODEL, 1024),
             ("protein", adata, cs.AA_MODEL, 4096),
-            ("mixture", mdata, cs.MIX_MODEL, 4096)):
+            ("protein_pinv", apdata, AA_PINV, 4096),
+            ("mixture", mdata, cs.MIX_MODEL, 4096),
+            ("g16_4096", data, G16, 4096),
+            ("g16_pinv_4096", pdata, G16_PINV, 4096),
+            ("protein_g16", adata, AA_G16, 4096)):
         pr = cs.main_path_pairs(data_, "cuda", n_pairs, model)
         eng, blo = pr["eng"], pr["eng"].blo
         width = bk.kernel_width(pr["sp"])
@@ -83,16 +106,26 @@ def time_root(root: str, reps: int) -> dict:
         call = lambda: bk.blo_optimize_batch_kernel_blocked(
             eng.consts, blo.tU, blo.tV, pr["tQ"], pr["e"], pr["q"], pr["b"],
             pr["s"], pr["orig"], ls_sum, width, **pinv)
+        try:
+            logl = call()[0]
+        except ValueError:           # more rates than this kernel takes
+            out[name] = None
+            del pr, eng, blo
+            continue
         out[name] = dict(ms=cuda_ms(call, reps), pairs=len(pr["sp"]),
                          width=width)
+        if parity and n_pairs == 4096:
+            p64 = cs.plain_runs(pr, width)[1][0]
+            out[name]["pairs_off_f64"] = int(
+                ((logl.double() - p64).abs() > LOGL_ABS_TOL).sum())
         del pr, eng, blo
     return out
 
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(time_root(os.path.abspath(argv[1]), int(argv[2]))),
-              flush=True)
+        print(json.dumps(time_root(os.path.abspath(argv[1]), int(argv[2]),
+                                   argv[3] == "1")), flush=True)
         return 0
     opts = {"--rounds": 2, "--reps": 10}
     roots = []
@@ -106,12 +139,13 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     times = {r: {c: [] for c in CASES} for r in roots}
+    off = {r: {} for r in roots}
     for k in range(opts["--rounds"]):
         for root in (roots if k % 2 == 0 else roots[::-1]):
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", root,
-                 str(opts["--reps"])], capture_output=True, text=True,
-                cwd=root, timeout=1200)
+                 str(opts["--reps"]), "1" if k == 0 else "0"],
+                capture_output=True, text=True, cwd=root, timeout=1200)
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)
                 return 1
@@ -119,17 +153,23 @@ def main(argv) -> int:
             print(line, flush=True)
             got = json.loads(line)
             for c in CASES:
-                times[root][c].append(got[c]["ms"])
+                if got[c] is not None:
+                    times[root][c].append(got[c]["ms"])
+                    if "pairs_off_f64" in got[c]:
+                        off[root][c] = got[c]["pairs_off_f64"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
-    mean = lambda v: sum(v) / len(v)
+    mean = lambda v: sum(v) / len(v) if v else None
     first = roots[0]
+    ratio = lambda a, b: a / b if a and b else None
     print(json.dumps({c: {"roots": roots,
                           "ms": [times[r][c] for r in roots],
-                          "first_over": [mean(times[first][c])
-                                         / mean(times[r][c]) for r in roots]}
+                          "first_over": [ratio(mean(times[first][c]),
+                                               mean(times[r][c]))
+                                         for r in roots],
+                          "pairs_off_f64": [off[r].get(c) for r in roots]}
                       for c in CASES}))
     return 0
 

@@ -290,26 +290,31 @@ def test_plain_counters_match_pallas_count_iters(f32_state):
 
 @pytest.fixture(scope="module")
 def model_consts(f32_state):
-    """(JAX consts, port consts) in f32 of the GTR+G4 state, LG+G4 and a
-    four-component LG-derived matrix mixture (per-rate eigen systems)."""
+    """(JAX consts, port consts) in f32 of the GTR+G4 state, LG+G4, a
+    four-component LG-derived matrix mixture (per-rate eigen systems) and
+    a nine-component one (past 8 rate categories)."""
     from epa_ng_tpu.models import aa_matrices
     from epa_ng_tpu.ops import eigen as jeigen
     from epa_ng_tpu.ops import newton as jnewton
     from test_torch_blo_kernel_aa import mixture_components
     out = {"GTR": (f32_state["eng"].consts, f32_state["tconsts"])}
     aa_matrices.MIXTURES["TESTSCALARMIX"] = (mixture_components(4), "gamma")
+    aa_matrices.MIXTURES["TESTSCALARMIX9"] = (mixture_components(9),
+                                             "gamma")
     try:
         for name, model in (("LG", "LG+G4{0.8}"),
-                            ("mixture", "TESTSCALARMIX+G4{0.9}")):
+                            ("mixture", "TESTSCALARMIX+G4{0.9}"),
+                            ("mixture9", "TESTSCALARMIX9+G9{0.9}")):
             jc = jnewton.eig_consts(
                 jeigen.decompose(Model.from_string(model)), jnp.float32)
             out[name] = (jc, tnewton.EigConsts(*[T(x) for x in jc]))
     finally:
         aa_matrices.MIXTURES.pop("TESTSCALARMIX", None)
+        aa_matrices.MIXTURES.pop("TESTSCALARMIX9", None)
     return out
 
 
-@pytest.mark.parametrize("model", ["GTR", "LG", "mixture"])
+@pytest.mark.parametrize("model", ["GTR", "LG", "mixture", "mixture9"])
 def test_kernel_scalars_match(model_consts, model):
     jc, tc = model_consts[model]
     ref = jpb._kernel_scalars(jc, jnp.float32)
@@ -319,7 +324,11 @@ def test_kernel_scalars_match(model_consts, model):
         np.testing.assert_allclose(g.numpy(), np.asarray(r))
     # a mixture's A and piA are per-rate rows [RK, K]
     K, RK = 4 if model == "GTR" else 20, got[0].shape[0]
-    assert got[2].shape == ((RK, K) if model == "mixture" else (K, K))
+    mix = model.startswith("mixture")
+    assert got[2].shape == ((RK, K) if mix else (K, K))
+    if model == "mixture9":
+        # nine components, one per rate category: past 8, within the cap
+        assert RK == 180 and bk.blo_unsupported(tc) is None
 
 
 @pytest.mark.parametrize("model", ["GTR", "LG", "mixture"])
@@ -331,8 +340,14 @@ def test_blo_supported_and_op_count(model_consts, model):
     assert "sliding" in bk.blo_unsupported(c, sliding=False)
     c64 = tnewton.EigConsts(*[x.double() for x in c])
     assert "f32" in bk.blo_unsupported(c64)
+    # 9 rate categories run (the runtime-R instantiation at K = 4, the
+    # warps walking rates at K = 20); one past the cap is refused by name
     c9 = c._replace(rates=torch.ones(9))
-    assert "9 rate categories" in bk.blo_unsupported(c9)
+    assert bk.blo_unsupported(c9) is None
+    cap = bk.MAX_RATES[(K, mix)]
+    over = c._replace(rates=torch.ones(cap + 1))
+    assert (f"{cap + 1} rate categories (the kernel takes 1..{cap}"
+            in bk.blo_unsupported(over))
     # K = 4: one pair's T per CTA beside its tables, exponential rows and
     # warp slots (2,048 B), within 227 KB; T is site-major, its RK rows
     # (+1 with +I) padded to 4 mod 8 floats a site
@@ -347,10 +362,10 @@ def test_blo_supported_and_op_count(model_consts, model):
     # or without +I
     assert bk.max_shared_sites(80, False, 20, mix) == (608 if mix else 640)
     assert bk.max_shared_sites(80, True, 20) == 640
-    for R in range(1, bk.MAX_RATES + 1):
+    for R in range(1, bk.MAX_RATES[(20, True)] + 1):
         rows, w = 20 * R, bk.max_shared_sites(20 * R, False, 20, True)
-        fixed = (bk._tab_bytes(20, R, True) + bk._exp_bytes(20)
-                 + bk._red_bytes(20))
+        fixed = (bk._tab_bytes(20, R, True) + bk._exp_bytes(20, R)
+                 + bk._red_bytes(20, R))
         assert fixed + rows * w * 4 <= bk.SMEM_PER_BLOCK
         assert fixed + rows * (w + 32) * 4 > bk.SMEM_PER_BLOCK
     assert bk._exp_bytes(4) == 4 * 2 * 32 * 4
@@ -409,16 +424,21 @@ def _team_sum_loop(row, tile, warps):
 
 @pytest.mark.parametrize("K,R,width", [(4, 4, 200), (4, 2, 330),
                                        (4, 4, 256), (20, 4, 128),
-                                       (20, 4, 300), (20, 3, 352)])
+                                       (20, 4, 300), (20, 3, 352),
+                                       (4, 9, 200), (4, 16, 330),
+                                       (20, 9, 128), (20, 16, 300)])
 def test_team_site_sum_order(K, R, width):
     """``team_site_sum`` adds a window's sites in the kernel's order: at
     K = 4 the team of 128 threads (one tile of 128 sites per pass, the
-    butterfly, a tree over 4 warps), at widths below, above and at a
-    multiple of the tile; at K = 20 the team (a tile of 32 x 8/R sites per
-    pass, the butterfly, a tree over 8 warps); bit for bit against the
-    order written out, and within 1e-5 relative of the f64 sum."""
-    tile, warps = ((bk.DNA_TEAM, bk.DNA_TEAM // 32) if K == 4
-                   else (32 * (bk.WIDE_TEAM // 32 // R), bk.WIDE_TEAM // 32))
+    butterfly, a tree over 4 warps) at every rate count, at widths below,
+    above and at a multiple of the tile; at K = 20 the team (a tile of
+    32 x 8/R sites per pass up to 8 rates, of 32 sites past them, where the
+    warps walk the rates; the butterfly, a tree over 8 warps); bit for bit
+    against the order written out, and within 1e-5 relative of the f64
+    sum."""
+    tile = bk.kernel_geometry(K, R, width)["tile"]
+    warps = bk._team(K) // 32
+    assert tile == (128 if K == 4 else 32 * max(1, 8 // R))
     rng = np.random.default_rng(K + R + width)
     x = rng.random((3, width)).astype(np.float32) * 10
     x[1, width // 2:] = 0.0           # a short span in a wide window
@@ -455,6 +475,48 @@ def test_wide_geometry(shape):
     assert dev["warps_per_sm"] == 8
 
 
+@pytest.mark.parametrize("K,R,mix,pinv,tab,shared_sites", [
+    (4, 16, False, False, 416, 832), (4, 16, False, True, 416, 832),
+    (4, 9, False, False, 256, 1568), (20, 9, False, False, 4608, 256),
+    (20, 16, False, False, 7520, 128), (20, 16, False, True, 7520, 128),
+    (20, 16, True, False, 19520, 96)])
+def test_geometry_past_eight_rates(K, R, mix, pinv, tab, shared_sites):
+    """The layout past 8 rate categories, as csrc/blo_newton.cu sets it up:
+    K = 4 tables of 24 R + 32 floats (rounded up to 32) and two exponential
+    rows of RK floats a warp, each lane filling every 32nd entry; K = 20
+    warps walking rates w, w + 8, ... (a tile of 32 sites, one row of 32
+    exponentials a rate walked) and reduction buffers of 512 units (32 R
+    past 16 rates); T in shared memory up to ``shared_sites`` (272 B a
+    site at K = 4, R = 16, with or without +I; 1,280 B at K = 20, so the
+    protein windows mostly take the device home), in device memory
+    beyond; and the rate cap, one rate past which the tables and a 32-site
+    tile of T with +I no longer fit."""
+    assert bk._tab_bytes(K, R, mix) == tab * 4
+    warps = bk._team(K) // 32
+    if K == 4:
+        row = -(-4 * R // 32) * 32
+        assert bk._t_stride(4, 4 * R, pinv) == (68 if R == 16 else 36)
+    else:
+        row = 32 * -(-R // 8)
+        assert bk._red_bytes(20, R) == (6 * max(512, 32 * R) + 32) * 4
+    assert bk._exp_bytes(K, R) == warps * 2 * row * 4
+    assert bk.max_shared_sites(K * R, pinv, K, mix) == shared_sites
+    g = bk.kernel_geometry(K, R, shared_sites, mix, pinv)
+    assert g["t_shared"] and g["shared_bytes"] <= bk.SMEM_PER_BLOCK
+    assert g["tile"] == (128 if K == 4 else 32)
+    dev = bk.kernel_geometry(K, R, shared_sites + 32, mix, pinv)
+    assert not dev["t_shared"]
+    assert dev["shared_bytes"] == (bk._tab_bytes(K, R, mix)
+                                   + bk._exp_bytes(K, R)
+                                   + bk._red_bytes(K, R))
+    cap = bk.MAX_RATES[(K, mix)]
+    assert cap == {(4, False): 312, (20, False): 43, (20, True): 27}[K, mix]
+    fits = lambda r: (bk._team_fixed_bytes(K, r, mix)
+                      + bk._round32(bk._t_stride(K, K * r, True) * 32) * 4
+                      <= bk.SMEM_PER_BLOCK)
+    assert fits(cap) and not fits(cap + 1)
+
+
 @pytest.mark.parametrize("pinv", [False, True])
 def test_dna_geometry(pinv):
     """The K = 4 team's geometry, as csrc/blo_newton.cu lays it out: 128
@@ -485,8 +547,8 @@ def test_dna_geometry(pinv):
     dev = bk.kernel_geometry(4, 4, widest + 32, has_pinv=pinv, regs=64)
     assert not dev["t_shared"] and dev["shared_bytes"] == 2048
     assert dev["ctas_per_sm"] == 8
-    # every rate count's widest shared T fits beside the fixed 2,048 B
-    for R in range(1, bk.MAX_RATES + 1):
+    # every rate count's widest shared T fits beside the fixed part
+    for R in range(1, bk.MAX_RATES[(4, False)] + 1):
         w = bk.max_shared_sites(4 * R, pinv)
         assert bk.kernel_geometry(4, R, w, has_pinv=pinv)["t_shared"]
         assert not bk.kernel_geometry(4, R, w + 32, has_pinv=pinv)["t_shared"]

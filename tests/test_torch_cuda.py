@@ -116,15 +116,26 @@ def test_wrapper_raises_instead_of_falling_back():
             c64, blo.tU.double(), blo.tV.double(), tQ.double(), pe, pq, pb,
             sp, blo.lengths.double()[pe.long()],
             torch.zeros(len(pe), device=dev, dtype=torch.float64), 256)
+    cap = bk.MAX_RATES[(4, False)]
     with pytest.raises(ValueError):
-        # 9 rate categories: no instantiation of the kernel takes them
-        c9 = eng.consts._replace(rates=torch.ones(9, device=dev),
-                                 weights=torch.ones(9, device=dev) / 9)
-        tU9 = torch.cat([blo.tU] * 3, dim=1)[:, :36]
+        # one rate category past the cap: the kernel refuses it
+        c_over = eng.consts._replace(
+            rates=torch.ones(cap + 1, device=dev),
+            weights=torch.ones(cap + 1, device=dev) / (cap + 1))
+        tU_over = blo.tU.repeat(1, cap + 1, 1)[:, :4 * (cap + 1)]
         bk.blo_optimize_batch_kernel_blocked(
-            c9, tU9, tU9, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
-            torch.zeros(len(pe), device=dev), 256)
+            c_over, tU_over, tU_over, tQ, pe, pq, pb, sp,
+            blo.lengths[pe.long()], torch.zeros(len(pe), device=dev), 256)
     assert bk.blo_newton.launches == before
+    # 9 rate categories run (the runtime-R instantiation)
+    c9 = eng.consts._replace(rates=torch.ones(9, device=dev),
+                             weights=torch.ones(9, device=dev) / 9)
+    tU9 = torch.cat([blo.tU] * 3, dim=1)[:, :36].contiguous()
+    bk.blo_optimize_batch_kernel_blocked(
+        c9, tU9, tU9, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+        torch.zeros(len(pe), device=dev), 256)
+    torch.cuda.synchronize()
+    assert bk.blo_newton.counts()["past8_launches"] >= 1
 
 
 @pytest.mark.requires_cuda
@@ -135,11 +146,11 @@ def test_engine_wide_windows_take_the_kernel(monkeypatch):
     the torch Newton.
 
     The kernel matches its plain version on the card on every (query,
-    edge) pair, bit for bit, and the placements match the port's f64 CPU engine (best logl to 1e-5
-    relative, top edge up to ties) on at least 90% of the queries: on this
-    data one query's pendant Newton stalls in f32 at its lower bound on
-    the card, where its likelihood cancels below FLT_MIN, and keeps the
-    initial lengths (the plain version on the card does the same)."""
+    edge) pair, bit for bit, and the placements match the port's f64 CPU
+    engine (best logl to 1e-5 relative, top edge up to ties) on at least
+    90% of the queries (on this data one query's pendant Newton stalled in
+    f32 at its lower bound before the guarded snap, ops.newton.cancelled,
+    repaired the stall)."""
     dev = _card()
     tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=4096, n_queries=32,
                                         seed=4, model_str=GTR, read_frac=0.9)
@@ -549,6 +560,115 @@ def test_engine_aa_takes_the_kernel(monkeypatch, case, mixture_registered):
     assert (after["launches"] - before["launches"]
             == after[family] - before[family])
 
+    assert [p.seq_id for p in got] == [p.seq_id for p in want]
+    close, agree = [], []
+    for x, y in zip(want, got):
+        close.append(abs(y.logls[0] - x.logls[0]) <= 1e-5 * abs(x.logls[0]))
+        ll = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
+        agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
+                     >= x.logls[0] - 1e-5 * abs(x.logls[0]))
+    assert np.mean(close) >= 0.9 and np.mean(agree) >= 0.9
+
+
+def _register_mixture9():
+    """Nine LG-derived components (chip_smoke.register_mixture's recipe),
+    gamma-coupled, as SMOKEMIX9 in the port's mixture table."""
+    from epa_ng_tpu_torch.models import aa_matrices
+    rng = np.random.RandomState(11)
+    lg_r, lg_f = aa_matrices.MATRICES["LG"]
+    comps = []
+    for _ in range(9):
+        r = lg_r * np.exp(0.35 * rng.randn(190))
+        f = lg_f * np.exp(0.35 * rng.randn(20))
+        comps.append((r, f / f.sum()))
+    aa_matrices.MIXTURES["SMOKEMIX9"] = (comps, "gamma")
+
+
+RATE_CASES = {"dna": ("GTR{{1.1/2.9/0.8/1.2/3.4/1}}+FU{{0.27/0.23/0.24/"
+                      "0.26}}+G{R}{{0.6}}"),
+              "pinv": ("GTR{{1.1/2.9/0.8/1.2/3.4/1}}+FU{{0.27/0.23/0.24/"
+                       "0.26}}+I{{0.25}}+G{R}{{0.6}}"),
+              "lg": "LG+G{R}{{0.8}}", "mixture": "SMOKEMIX9+G{R}{{0.9}}"}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case,R", [("dna", 9), ("dna", 16), ("pinv", 9),
+                                    ("pinv", 16), ("lg", 9), ("lg", 16),
+                                    ("mixture", 9)])
+@pytest.mark.parametrize("home", ["shared", "widest", "device"])
+def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
+    """Past 8 rate categories (the K = 4 runtime-R instantiation, without
+    and with +I; the K = 20 team's warps walking rates, one matrix and a
+    nine-component mixture) the kernel matches its plain version on the
+    card bit for bit, with the counters, with T in shared memory (at 128
+    sites and at the widest window that fits) and in device memory; each
+    launch counts past 8 rates, and the library's geometry matches
+    kernel_geometry's."""
+    dev = _card()
+    pinv, mix = case == "pinv", case == "mixture"
+    K = 4 if case in ("dna", "pinv") else 20
+    if mix:
+        _register_mixture9()
+    try:
+        eng, tQ, pe, pq, pb, sp, invq = _state(
+            dev, 256, seed=R, model=RATE_CASES[case].format(R=R),
+            n_taxa=16, data_seed=21, with_invq=True,
+            alphabet="ACGT" if K == 4 else AA)
+    finally:
+        if mix:
+            from epa_ng_tpu_torch.models import aa_matrices
+            aa_matrices.MIXTURES.pop("SMOKEMIX9", None)
+    blo = eng.blo
+    assert blo.tU.shape[1] == K * R
+    shared = bk.max_shared_sites(K * R, pinv, K, mix)
+    width = {"shared": 128, "widest": shared, "device": shared + 32}[home]
+    lib = bk.blo_newton.team_geometry(K, R, width, mix, pinv,
+                                      device_t=home == "device")
+    g = bk.kernel_geometry(K, R, width, mix, pinv, regs=lib["regs"])
+    assert g["t_shared"] == (home != "device")
+    assert lib == {k: g[k] for k in lib}
+    args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
+            torch.zeros(len(pe), device=dev))
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    kw = (dict(invq=invq, ls=blo.ls, omp=bk._omp(eng.consts, torch.float32))
+          if pinv else {})
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, width, counters=True, **kw)
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    assert after["past8_launches"] == before["past8_launches"] + 1
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
+                                             counters=True, **kw))
+
+
+@pytest.mark.requires_cuda
+def test_engine_g16_takes_the_kernel(monkeypatch):
+    """GTR+G16 places through the K = 4 runtime-R instantiation on the
+    card, fused step and exact path, never through the torch Newton; the
+    placements agree with the port's f64 CPU engine (best logl within 1e-5
+    relative, top edge up to ties) on >= 90% of queries."""
+    dev = _card()
+    model = GTR.replace("+G4{0.6}", "+G16{0.6}")
+    tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=200, n_queries=32,
+                                        seed=3, model_str=GTR)
+    cpu = PlacementEngine(tree, ref, Model.from_string(model), Options(),
+                          device="cpu")
+    want = cpu.place_chunk(qry) + cpu._place_chunk_exact(
+        cpu.encode_msa(qry), 0)
+    twin = []
+    monkeypatch.setattr(tnewton, "blo_optimize_batch",
+                        lambda *a, **k: twin.append(1))
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
+                          Options(compute_dtype="f32"), device=dev)
+    before = bk.blo_newton.counts()
+    got = eng.place_chunk(qry)
+    got += eng._place_chunk_exact(eng.encode_msa(qry), 0)
+    after = bk.blo_newton.counts()
+    assert not twin
+    launched = after["launches"] - before["launches"]
+    assert launched > 0
+    assert after["past8_launches"] - before["past8_launches"] == launched
+    assert after["k4_launches"] - before["k4_launches"] == launched
     assert [p.seq_id for p in got] == [p.seq_id for p in want]
     close, agree = [], []
     for x, y in zip(want, got):
