@@ -51,7 +51,21 @@ Phases (any failure exits non-zero and prints no result line):
    mixture and LG+IC+G4 (all on seed 5), and past 8 rates under
    GTR+I{0.2}+R10 on data with invariant columns and under LG+G16;
 6. the DNA, +I, protein, mixture, GTR+G16 and LG+G16 main paths once more
-   under torch.profiler (device time by kernel, busy share).
+   under torch.profiler (device time by kernel, busy share);
+7. the rest of the one-card CLI, each path with the counts reset just
+   before it and read just after: ``--opt-model`` from the generic GTR+G
+   start on the JAX bench's opt_model shape (``synth_dataset(256, 256,
+   seed=37)``, f32), then 2048 reads placed on the optimized model
+   through the kernel; ``--dump-binary`` on the headline, then ``-b``
+   placing its 8192 reads from the store through the kernel;
+   ``--raxml-blo`` on the headline, and BIN+G2{1.2} and
+   GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8} at its shape (evolved
+   over the "01" and the genotype alphabets), each through the torch
+   Newton only (0 kernel launches, ``twin_launches`` > 0); the five on
+   the small reference against the port's f64 CPU run (for
+   ``--opt-model`` also the card's f32 optimum within OPT_EPSILON of the
+   f64 one); and five L-BFGS steps of another ``--opt-model`` run under
+   torch.profiler.
 
 ``python3 chip_smoke.py --fmad-ab`` runs phase 1 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
@@ -97,6 +111,16 @@ AA_G16_MODEL = "LG+G16{0.8}"
 MIXTURE = "SMOKEMIX4M"   # four LG-derived components, gamma-coupled
 MIX_MODEL = MIXTURE + "+G4{0.9}"
 AA = "ARNDCQEGHILKMFPSTWYV"
+# the paths the JAX package runs on its XLA twin, never on Pallas: binary
+# (K = 2) and genotype (K = 10) models, over their alphabets in state order
+# (the genotype one is pll_map_diploid10's: AA CC GG TT AC AG CG AT CT GT)
+BIN_MODEL = "BIN+G2{1.2}"
+BIN = "01"
+GT_MODEL = "GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8}"
+GT = "ACGTMRSWYK"
+# --opt-model: the JAX bench's opt_model cell (bench.py:515-537), a generic
+# start on random data
+OPT_MODEL = "GTR+G"
 # small references at K = 20 (taxa, sites, queries, --no-heur queries):
 # smaller than the DNA one's, as the f64 CPU run they are held against
 # does 5x the rate-state lanes per site at RK = 80
@@ -625,11 +649,17 @@ def read_jplace(path):
     return out
 
 
-def run_cli(paths, outdir, device, chunk, extra=(), model=MODEL):
+def run_cli(paths, outdir, device, chunk, extra=(), model=MODEL,
+            binary=None):
+    """``epa_ng_tpu_torch.cli.main`` on (tree, reference, query) files; a
+    query of None runs without one (``--dump-binary``), and ``binary``
+    loads that CLV store (``-b``) in place of the tree and reference."""
     from epa_ng_tpu_torch import cli
-    argv = ["--tree", paths[0], "--ref-msa", paths[1], "--query", paths[2],
-            "--model", model, "--outdir", outdir, "--redo",
-            "--chunk-size", str(chunk), "--device", device, *extra]
+    src = (["-b", binary] if binary else
+           ["--tree", paths[0], "--ref-msa", paths[1], "--model", model])
+    qry = ["--query", paths[2]] if paths[2] else []
+    argv = src + qry + ["--outdir", outdir, "--redo", "--chunk-size",
+                        str(chunk), "--device", device, *extra]
     t0 = time.perf_counter()
     rc = cli.main(argv)
     wall = time.perf_counter() - t0
@@ -638,10 +668,11 @@ def run_cli(paths, outdir, device, chunk, extra=(), model=MODEL):
 
 
 def main_path(paths, n_queries, true_edges, device, model=MODEL,
-              name="main", chunk=1024):
-    """Phases 4-4d: the CLI over the full shape; the kernel's launch
+              name="main", chunk=1024, extra=(), binary=None):
+    """Phases 4-4f and 7: the CLI over the full shape; the kernel's launch
     counts set to 0 just before and read just after, and the calls of the
-    torch Newton (``ops.newton.blo_optimize_batch``) counted in the run."""
+    torch Newton (``ops.newton.blo_optimize_batch``) counted in the run.
+    ``extra`` flags and a ``binary`` store go to :func:`run_cli`."""
     import numpy as np
 
     from epa_ng_tpu_torch.ops import newton
@@ -657,7 +688,7 @@ def main_path(paths, n_queries, true_edges, device, model=MODEL,
     try:
         blo_newton.reset_counts()
         stats, wall = run_cli(paths, outdir, device, chunk=chunk,
-                              model=model)
+                              model=model, extra=extra, binary=binary)
         counts = blo_newton.counts()
     finally:
         newton.blo_optimize_batch = twin
@@ -683,7 +714,8 @@ def main_path(paths, n_queries, true_edges, device, model=MODEL,
 
 def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
                     alphabet="ACGT", freqs=FREQS, random_data=False,
-                    size=(64, 200, 256, 64), seed=5):
+                    size=(64, 200, 256, 64), seed=5, data_model=None,
+                    extra=(), binary=False, prepared=None):
     """Phase 5: the card's f32 runs against the port's f64 CPU runs of the
     same files: the default heuristic on all queries, and --no-heur (every
     pair through the exact path's kernel slabs) on the first few. Short
@@ -694,41 +726,60 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
     as for a mixture) at ``size`` = (taxa, sites, queries, --no-heur
     queries); with an ``invariant_share`` that share of the columns is
     made invariant (states from ``freqs``); ``seed`` makes the data.
-    Returns the agreement per configuration and the kernel's launch
-    counts over the card's runs."""
+    ``data_model`` evolves the data under another model than the default
+    one of its alphabet (binary, genotype); ``prepared`` = ((tree, ref,
+    qry), paths) takes given data instead. ``extra`` flags go to every
+    run; with ``binary`` each device first dumps the CLV store
+    (``--dump-binary``) and then places from it (``-b``). Returns the
+    agreement per configuration, the kernel's launch counts over the
+    card's runs and the calls of the torch twin they made."""
     import numpy as np
 
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.utils.synth import write_fasta
     outdir = os.path.join(OUT, name)
     n_taxa, sites, n_queries, n_few = size
-    if random_data:
+    if prepared is not None:
+        (tree, ref, qry, _), paths = prepared
+    elif random_data:
         (tree, ref, qry, _), paths = make_random_data(n_taxa, sites,
                                                       n_queries, seed, outdir)
     else:
         (tree, ref, qry, _), paths = make_data(
             n_taxa, sites, n_queries, seed, outdir,
-            model=MODEL if alphabet == "ACGT" else AA_MODEL,
+            model=data_model or (MODEL if alphabet == "ACGT" else AA_MODEL),
             alphabet=alphabet)
     if invariant_share:
         ref, qry, _ = with_invariant_sites(ref, qry, freqs, invariant_share,
                                            seed, alphabet)
         paths = write_data(tree, ref, qry, outdir)
+    os.makedirs(outdir, exist_ok=True)
     few = os.path.join(outdir, f"query{n_few}.fasta")
     write_fasta(_head(qry, n_few), few)
     # random reads tie across more edges than the default --filter-max (7)
     # keeps, and each run would keep another 7 of the tied edges: keep
     # them all, so the f64 run scores whichever the card put on top
     keep = ("--filter-max", "256") if random_data else ()
+    stores = {}
+    if binary:
+        for dev in (device, "cpu"):
+            d = os.path.join(outdir, f"dump_{dev}")
+            run_cli((paths[0], paths[1], None), d, dev, chunk=256,
+                    extra=("--dump-binary",), model=model)
+            stores[dev] = os.path.join(d, "epa_binary_file.npz")
     out = {}
+    twin = 0
     blo_newton.reset_counts()
-    for cfg, qpath, extra, n in (("dyn", paths[2], (), n_queries),
+    for cfg, qpath, flags, n in (("dyn", paths[2], (), n_queries),
                                  ("noheur", few, ("--no-heur",), n_few)):
         runs = []
         for dev in (device, "cpu"):
             d = os.path.join(outdir, f"{cfg}_{dev}")
-            run_cli((paths[0], paths[1], qpath), d, dev, chunk=256,
-                    extra=extra + keep, model=model)
+            st, _ = run_cli((paths[0], paths[1], qpath), d, dev, chunk=256,
+                            extra=flags + keep + tuple(extra), model=model,
+                            binary=stores.get(dev))
+            if dev == device:
+                twin += st["twin_launches"]
             runs.append(read_jplace(os.path.join(d, "epa_result.jplace")))
         a, b = runs
         check(a.keys() == b.keys() and len(a) == n,
@@ -749,32 +800,136 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
             [a[q][0]["edge_num"] == b[q][0]["edge_num"] for q in a])),
             top_edge_up_to_ties=tie, max_rel_best_logl=rel)
     out["launches"] = blo_newton.counts()
+    out["twin_launches"] = twin
     return out
 
 
-def profile_main(paths, device, model=MODEL, name="profiled", chunk=1024):
+def explicit_gtr(model) -> str:
+    """A GTR+G model's parameters as a model string at full precision
+    (``Model.to_string`` keeps six digits and names free parameters only by
+    their mode)."""
+    num = lambda v: f"{float(v):.17g}"
+    return (f"GTR{{{'/'.join(num(r) for r in model.subst_rates)}}}"
+            f"+FU{{{'/'.join(num(f) for f in model.base_freqs)}}}"
+            f"+G{model.num_ratecats}{{{num(model.alpha)}}}")
+
+
+def small_opt_model(device, size=(64, 200, 256, 64), seed=5):
+    """Phase 7f: ``--opt-model`` on the small reference. The optimizer
+    (``core.evaluate.optimize_model``, which the CLI calls) runs on the
+    card in f32 and on the CPU in f64 from the generic OPT_MODEL start; the
+    card's optimum must lie within OPT_EPSILON log-units of the f64 one.
+    Then the card-optimized tree and model, written out at full precision,
+    go through :func:`small_reference`'s gates (the card's f32 placements
+    against the port's f64 CPU run of the same files)."""
+    import torch
+
+    from epa_ng_tpu_torch.core.evaluate import OPT_EPSILON, optimize_model
+    from epa_ng_tpu_torch.models import Model
+    from epa_ng_tpu_torch.tree import Tree
+    outdir = os.path.join(OUT, "small_opt")
+    n_taxa, sites, n_queries, _ = size
+    (tree, ref, qry, _), paths = make_data(n_taxa, sites, n_queries, seed,
+                                           outdir)
+    res, models, trees = {"paths": paths}, {}, {}
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+        t = Tree.from_string(tree.plain_newick())
+        m = Model.from_string(OPT_MODEL)
+        st = {}
+        t0 = time.perf_counter()
+        optimize_model(t, ref, m, dtype=dtype, device=dev, stats=st)
+        st.update(seconds=time.perf_counter() - t0, alpha=float(m.alpha))
+        res[dev], models[dev], trees[dev] = st, m, t
+    gap = abs(res[device]["final_logl"] - res["cpu"]["final_logl"])
+    res["optimum_gap"] = gap
+    check(gap <= OPT_EPSILON, f"--opt-model small reference: the card's f32 "
+          f"optimum is {gap:.4f} from the f64 one (> {OPT_EPSILON})")
+    opt_paths = write_data(trees[device], ref, qry,
+                           os.path.join(outdir, "optimized"))
+    opt_tree = Tree.from_file(opt_paths[0])
+    res["placement"] = small_reference(
+        device, model=explicit_gtr(models[device]), name="small_opt_placed",
+        size=size, prepared=((opt_tree, ref, qry, None), opt_paths))
+    return res
+
+
+def profile_main(paths, device, model=MODEL, name="profiled", chunk=1024,
+                 extra=()):
     """Phase 6: a main path once more under torch.profiler: device time by
     kernel and the device's busy share of the CLI run (reference build +
     placement; profiling adds host overhead, so the share is a lower bound
     on the unprofiled run's)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         stats, wall = run_cli(paths, os.path.join(OUT, name), device,
-                              chunk=chunk, model=model)
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    # device-side (kernel, memcpy) events only: the CPU ops that launched
-    # them carry the same device time again
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    total_ms = sum(dev_us(e) for e in evs) / 1e3
-    top = sorted(evs, key=dev_us, reverse=True)[:8]
+                              chunk=chunk, model=model, extra=extra)
+    total_ms, top = device_time(prof)
     return dict(device_ms=total_ms, cli_wall_s=wall,
                 busy_share=(total_ms / 1e3 / wall if total_ms else None),
-                top_kernels=[[e.key[:60], dev_us(e) / 1e3, e.count]
-                             for e in top])
+                top_kernels=top)
+
+
+def device_time(prof):
+    """A profile's device time (ms) and its 8 largest entries [name, ms,
+    count]: device-side events (kernels, copies) only, since the CPU ops
+    that launched them carry the same device time again, and no user
+    annotation (``torch.optim``'s ``Optimizer.step#...``), whose device
+    span covers the kernels inside it."""
+    from torch.autograd import DeviceType
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+           and not getattr(e, "is_user_annotation", False)]
+    top = sorted(evs, key=dev_us, reverse=True)[:8]
+    return (sum(dev_us(e) for e in evs) / 1e3,
+            [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top])
+
+
+def profile_opt_window(paths, device, skip=20, active=5):
+    """Phase 7g: a ``--opt-model`` CLI run with torch.profiler on for
+    ``active`` L-BFGS steps after the first ``skip``: device time by
+    kernel and the device's busy share over that window's wall time (the
+    steps' objective evaluations, with and without the gradient, and the
+    line searches between them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    lbfgs_step, n, wall = torch.optim.LBFGS.step, [0], []
+
+    def step(self, closure):
+        if n[0] == skip:
+            torch.cuda.synchronize()
+            prof.start()
+            wall.append(time.perf_counter())
+        out = lbfgs_step(self, closure)
+        n[0] += 1
+        if n[0] == skip + active:
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter())
+            prof.stop()
+        return out
+
+    torch.optim.LBFGS.step = step
+    try:
+        stats, cli_wall = run_cli(paths, os.path.join(OUT, "profiled_opt"),
+                                  device, chunk=1024, model=OPT_MODEL,
+                                  extra=("--opt-model",))
+    finally:
+        torch.optim.LBFGS.step = lbfgs_step
+    check(len(wall) == 2, f"--opt-model took {n[0]} L-BFGS steps, fewer "
+          f"than the profiled window's {skip + active}")
+    total_ms, top = device_time(prof)
+    window_s = wall[1] - wall[0]
+    check(total_ms < window_s * 1e3, f"--opt-model profile: {total_ms} ms "
+          f"of device time in a {window_s} s window")
+    return dict(steps=active, after_steps=skip, window_s=window_s,
+                device_ms=total_ms, cli_wall_s=cli_wall,
+                opt_model_s=stats["opt_model_s"],
+                busy_share=(total_ms / 1e3 / window_s if total_ms else None),
+                top_kernels=top)
 
 
 def check_parity(tag, res):
@@ -827,6 +982,17 @@ def check_main(tag, st, family, pinv=False, past8=False):
           f"{tag}: the torch Newton ran {st['twin_calls']} times")
 
 
+def check_twin(tag, st):
+    """A path that the JAX package runs on its XLA twin ran the torch twin
+    on the card, and never the kernel."""
+    check(st["launches"] == 0,
+          f"{tag}: the kernel was launched {st['launches']} times")
+    check(st["twin_launches"] > 0, f"{tag}: the torch twin never ran")
+    check(st["twin_launches"] == st["twin_calls"],
+          f"{tag}: twin_launches {st['twin_launches']} but the twin was "
+          f"called {st['twin_calls']} times")
+
+
 def kernel_entry(name, replaces, launches, r, **extra):
     """One entry of the ``kernels`` line."""
     return {"name": name, "route": "cuda",
@@ -835,6 +1001,96 @@ def kernel_entry(name, replaces, launches, r, **extra):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, **extra}
+
+
+def rest_of_cli(paths, n_queries, true_edges) -> dict:
+    """Phase 7: ``--opt-model`` (the JAX bench's opt_model shape, then 2048
+    reads placed on the optimized model through the kernel),
+    ``--dump-binary`` and ``-b`` (the headline), ``--raxml-blo`` (the
+    headline), binary and genotype models (the headline's shape), and the
+    small-reference gates of all five against the port's f64 CPU run."""
+    from epa_ng_tpu_torch.utils.synth import synth_dataset
+    res = {}
+    # 7a: --opt-model at 256 taxa x 256 sites, then 2048 random reads
+    t0 = time.perf_counter()
+    tree, ref, qry = synth_dataset(n_taxa=256, sites=256, n_queries=2048,
+                                   seed=37)
+    opaths = write_data(tree, ref, qry, os.path.join(OUT, "data_opt"))
+    print(f"opt-model data: 256 taxa x 256 sites, 2048 random queries in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    st = main_path(opaths, 2048, None, "cuda", model=OPT_MODEL,
+                   name="main_opt", extra=("--opt-model",))
+    print("--opt-model main path: " + json.dumps(st), flush=True)
+    check_main("--opt-model main path", st, "k4_launches")
+    res["opt_model"] = st
+
+    # 7b: --dump-binary, then -b: the headline's store and reads
+    outdir = os.path.join(OUT, "dump")
+    dst, dump_wall = run_cli((paths[0], paths[1], None), outdir, "cuda",
+                             chunk=1024, extra=("--dump-binary",))
+    store = os.path.join(outdir, "epa_binary_file.npz")
+    st = main_path((None, None, paths[2]), n_queries, true_edges, "cuda",
+                   name="main_b", binary=store)
+    st.update(dump_s=dump_wall, dump_build_s=dst["build_s"],
+              load_s=st["build_s"], store_mb=os.path.getsize(store) / 1e6)
+    print("-b main path: " + json.dumps(st), flush=True)
+    check_main("-b main path", st, "k4_launches")
+    res["binary"] = st
+
+    # 7c: --raxml-blo on the headline
+    st = main_path(paths, n_queries, true_edges, "cuda", name="main_raxml",
+                   extra=("--raxml-blo",))
+    print("--raxml-blo main path: " + json.dumps(st), flush=True)
+    check_twin("--raxml-blo main path", st)
+    res["raxml_blo"] = st
+
+    # 7d-7e: binary and genotype models at the headline's shape
+    for key, model, alphabet in (("bin", BIN_MODEL, BIN),
+                                 ("genotype", GT_MODEL, GT)):
+        t0 = time.perf_counter()
+        kdata, kpaths = make_data(512, 512, n_queries, 0,
+                                  os.path.join(OUT, f"data_{key}"),
+                                  model=model, alphabet=alphabet)
+        print(f"{key} data: 512 taxa x 512 sites, {n_queries} queries in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        st = main_path(kpaths, n_queries, kdata[3], "cuda", model=model,
+                       name=f"main_{key}")
+        print(f"{model} main path: " + json.dumps(st), flush=True)
+        check_twin(f"{model} main path", st)
+        res[key] = st
+
+    # 7f: the small-reference gates
+    small = {
+        "binary": small_reference("cuda", name="small_b", binary=True),
+        "raxml_blo": small_reference("cuda", name="small_raxml",
+                                     extra=("--raxml-blo",)),
+        "bin": small_reference("cuda", model=BIN_MODEL, name="small_bin",
+                               alphabet=BIN, data_model=BIN_MODEL),
+        "genotype": small_reference("cuda", model=GT_MODEL, name="small_gt",
+                                    alphabet=GT, data_model=GT_MODEL),
+    }
+    for key, sm in small.items():
+        print(f"small reference {key}: " + json.dumps(sm), flush=True)
+    check(small["binary"]["launches"]["launches"] > 0,
+          "-b small reference: the kernel never ran")
+    for key in ("raxml_blo", "bin", "genotype"):
+        check(small[key]["launches"]["launches"] == 0
+              and small[key]["twin_launches"] > 0,
+              f"{key} small reference: kernel launches "
+              f"{small[key]['launches']['launches']}, twin launches "
+              f"{small[key]['twin_launches']}")
+    small["opt_model"] = small_opt_model("cuda")
+    print("small reference --opt-model: " + json.dumps(small["opt_model"]),
+          flush=True)
+    res["small"] = small
+
+    # 7g: where the device time of the --opt-model run goes, over a
+    # window of its L-BFGS steps (a whole run holds millions of profiler
+    # events, and did not finish under the profiler in the time limit)
+    res["opt_profile"] = profile_opt_window(opaths, "cuda")
+    print("--opt-model profile: " + json.dumps(res["opt_profile"]),
+          flush=True)
+    return res
 
 
 def main(argv=()) -> int:
@@ -1015,6 +1271,10 @@ def main(argv=()) -> int:
                               name="profiled_aa_g16", chunk=512)
         print("LG+G16 profile: " + json.dumps(agprof), flush=True)
 
+        # phase 7: the rest of the one-card CLI, each path with its counts
+        # reset just before and read just after
+        rest = rest_of_cli(paths, n_queries, data[3])
+
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
         shapes = lambda p, keys=("blocked", "blocked_widest_shared",
                                  "blocked_device_memory", "per_pair",
@@ -1034,6 +1294,8 @@ def main(argv=()) -> int:
                 "blo_newton", "epa_ng_tpu/ops/pallas_blo.py:117",
                 stats["launches"], par["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_rest_of_cli={
+                    k: rest[k]["launches"] for k in ("opt_model", "binary")},
                 instantiation="GTR+G4: K = 4, R = 4", **team(par),
                 parity={**shapes(par, ("blocked", "blocked_widest_shared",
                                        "blocked_device_memory",

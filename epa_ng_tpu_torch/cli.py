@@ -4,7 +4,8 @@ Flags, groups and mutual exclusions are the JAX package's (which mirror the
 reference's CLI11 app, src/main.cpp:96-556), plus ``--device`` (the card by
 default, ``cpu`` for the plain paths). ``--pallas auto|on|off`` keeps its
 name and selects the CUDA Newton kernel. Flags whose machinery this port
-does not have yet exit with a "not yet ported" error.
+does not have yet (``NOT_YET_PORTED``) exit with a "not yet ported"
+error.
 
 Run as ``python -m epa_ng_tpu_torch.cli ...``.
 """
@@ -30,8 +31,6 @@ LAST_RUN_STATS: dict = {}
 
 # (attribute, flag) of options whose machinery is not in this port yet
 NOT_YET_PORTED = (
-    ("dump_binary", "--dump-binary"), ("binary", "--binary"),
-    ("opt_model", "--opt-model"), ("raxml_blo", "--raxml-blo"),
     ("memsave", "--memsave"), ("adaptive_split", "--adaptive-split"),
     ("mesh", "--mesh"), ("distributed", "--distributed"),
 )
@@ -68,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     conv.add_argument("-B", "--dump-binary", action="store_true",
                       help="Binary dump mode: write ref. tree CLV store in "
                            "binary format then exit. NOTE: not compatible "
-                           "with premasking! (not yet ported)")
+                           "with premasking!")
     conv.add_argument("--split", nargs="+", metavar="MSA",
                       help="Takes a reference MSA and combined ref+query "
                            "MSA(s); outputs query.fasta and reference.fasta. "
@@ -80,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Path to Reference MSA file.")
     inp.add_argument("-b", "--binary",
                      help="Path to binary reference file, as created using "
-                          "--dump-binary. (not yet ported)")
+                          "--dump-binary.")
     inp.add_argument("-q", "--query", help="Path to Query MSA file.")
     inp.add_argument("-m", "--model", default=None,
                      help="Description string of the model to be used, or a "
@@ -128,12 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
                       help="Number of query sequences to read at a time.")
     comp.add_argument("--raxml-blo", action="store_true",
                       help="Old-style independent branch length optimization "
-                           "instead of the sliding approach. (not yet "
-                           "ported)")
+                           "instead of the sliding approach.")
     comp.add_argument("--opt-model", action="store_true",
                       help="ML-evaluate free model parameters and reference "
-                           "tree branch lengths before placement. (not yet "
-                           "ported)")
+                           "tree branch lengths before placement.")
     comp.add_argument("--no-pre-mask", action="store_true",
                       help="Do NOT pre-mask sequences.")
     comp.add_argument("--rate-scalers", choices=["on", "off", "auto"],
@@ -333,52 +330,101 @@ def main(argv=None) -> int:
     from epa_ng_tpu_torch.io import fasta as fio
     from epa_ng_tpu_torch.models import Model
 
-    # --- build the reference state
-    if not args.tree or not args.ref_msa:
-        print("Error: --tree and --ref-msa are required", file=sys.stderr)
-        return 1
-    if args.model is None:
-        log.error(
-            "A model has to be explicitly specified! You may specify it "
-            "generically (GTR+G), however parameters will not be "
-            "optimized. We recommend evaluating parameters with raxml-ng "
-            "--evaluate and passing the resulting .bestModel file to "
-            "--model.")
-        return 1
-
-    model_desc = args.model
-    if os.path.isfile(model_desc):
-        from epa_ng_tpu_torch.io.model_files import parse_model_file
-        log.info("Selected: Specified model file: %s", model_desc)
-        model_desc = parse_model_file(model_desc)
-    log.info("Selected: Specified model: %s", model_desc)
-    model = Model.from_string(model_desc)
-
-    from epa_ng_tpu_torch.tree import Tree
-    ref_info = fio.make_msa_info(args.ref_msa)
-    qry_info = fio.make_msa_info(args.query) if args.query else None
-
-    premask = options.premasking
-    if qry_info is not None and premask:
-        if ref_info.sites != qry_info.sites:
-            log.error(
-                "The reference and query alignment files do not seem to "
-                "have the same alignment width! (%d vs. %d). Are the "
-                "query sequences not aligned?", ref_info.sites,
-                qry_info.sites)
+    # --- build or load the reference state
+    opt_stats = {}
+    if options.load_binary_mode:
+        from epa_ng_tpu_torch.io.binary import load_binary
+        log.info("Loading from binary: %s", args.binary)
+        t_build = time.time()
+        try:
+            engine = load_binary(args.binary, options, device=device)
+        except NotImplementedError as e:
+            log.error("%s", e)
+            return 2
+        build_s = time.time() - t_build
+        tree = engine.tree
+        qry_info = fio.make_msa_info(args.query) if args.query else None
+        if options.premasking:
+            log.info("Premasking is limited to per-query ranges in binary "
+                     "mode (the CLV store is built unmasked)")
+            if qry_info is not None:
+                # so the reader keeps the columns that are gaps in every
+                # query: the store has them (the JAX package drops them
+                # and then refuses the reads' length)
+                qry_info.gap_mask[:] = False
+    else:
+        if not args.tree or not args.ref_msa:
+            print("Error: --tree and --ref-msa (or --binary) are required",
+                  file=sys.stderr)
             return 1
-        fio.MSAInfo.or_mask(ref_info, qry_info)
+        if args.model is None:
+            log.error(
+                "A model has to be explicitly specified! You may specify it "
+                "generically (GTR+G), however parameters will not be "
+                "optimized. We recommend evaluating parameters with raxml-ng "
+                "--evaluate and passing the resulting .bestModel file to "
+                "--model.")
+            return 1
 
-    ref_msa = fio.build_msa_from_file(args.ref_msa, ref_info, premask)
-    tree = Tree.from_file(args.tree, options.preserve_rooting)
-    t_build = time.time()
-    try:
-        engine = PlacementEngine(tree, ref_msa, model, options,
-                                 device=device)
-    except NotImplementedError as e:
-        log.error("%s", e)
-        return 2
-    build_s = time.time() - t_build
+        model_desc = args.model
+        if os.path.isfile(model_desc):
+            from epa_ng_tpu_torch.io.model_files import parse_model_file
+            log.info("Selected: Specified model file: %s", model_desc)
+            model_desc = parse_model_file(model_desc)
+        log.info("Selected: Specified model: %s", model_desc)
+        model = Model.from_string(model_desc)
+
+        from epa_ng_tpu_torch.tree import Tree
+        ref_info = fio.make_msa_info(args.ref_msa)
+        qry_info = fio.make_msa_info(args.query) if args.query else None
+
+        premask = options.premasking and not options.dump_binary_mode
+        if qry_info is not None and premask:
+            if ref_info.sites != qry_info.sites:
+                log.error(
+                    "The reference and query alignment files do not seem to "
+                    "have the same alignment width! (%d vs. %d). Are the "
+                    "query sequences not aligned?", ref_info.sites,
+                    qry_info.sites)
+                return 1
+            fio.MSAInfo.or_mask(ref_info, qry_info)
+
+        ref_msa = fio.build_msa_from_file(args.ref_msa, ref_info, premask)
+        tree = Tree.from_file(args.tree, options.preserve_rooting)
+        if options.opt_model:
+            from epa_ng_tpu_torch.core.evaluate import optimize_model
+            log.info("Optimizing model parameters and branch lengths")
+            t_opt = time.time()
+            opt = {}
+            optimize_model(tree, ref_msa, model,
+                           dtype=(torch.float64
+                                  if options.compute_dtype == "f64"
+                                  else torch.float32), device=device,
+                           stats=opt)
+            opt_stats = dict(opt_model_s=time.time() - t_opt,
+                             opt_model_alpha=float(model.alpha),
+                             **{f"opt_model_{k}": v for k, v in opt.items()})
+        t_build = time.time()
+        try:
+            engine = PlacementEngine(tree, ref_msa, model, options,
+                                     device=device)
+        except NotImplementedError as e:
+            log.error("%s", e)
+            return 2
+        build_s = time.time() - t_build
+
+        if options.dump_binary_mode:
+            from epa_ng_tpu_torch.io.binary import dump_binary
+            log.info("Writing to binary")
+            dump_file = os.path.join(outdir, "epa_binary_file")
+            with open(args.tree) as f:
+                dump_binary(engine, dump_file, f.read())
+            log.info("Binary CLV store written to: %s.npz", dump_file)
+            LAST_RUN_STATS.clear()
+            LAST_RUN_STATS.update(build_s=build_s,
+                                  total_s=time.time() - start_all,
+                                  **opt_stats)
+            return 0
 
     if not args.query:
         log.error("Must supply query file! Combined MSA files not currently "
@@ -450,6 +496,9 @@ def main(argv=None) -> int:
     LAST_RUN_STATS.clear()
     LAST_RUN_STATS.update(
         build_s=build_s,
+        # --opt-model: its seconds (opt_model_s, the JAX bench's name),
+        # starting and final logl, alpha and work (opt_model_*)
+        **opt_stats,
         placing_s=time.time() - start_place,
         total_s=time.time() - start_all,
         reads=progress["reads"],
@@ -461,7 +510,8 @@ def main(argv=None) -> int:
         # jplace text formatting + file write (emit)
         finalize_s=stage_s["finalize"],
         emit_s=stage_s["emit"],
-        # the CUDA kernel's executed Newton work, from its counters
+        # the CUDA kernel's executed Newton work, from its counters, and
+        # the calls of the torch twin (twin_launches)
         **engine.newton_work.totals())
     log.info("Time spent placing: %ds", int(time.time() - start_place))
     log.info("Elapsed Time: %ds", int(time.time() - start_all))

@@ -14,11 +14,12 @@ fused into one step per chunk (parallel.mesh.placement_step), with the
 ragged candidate sets padded to fixed-size blocks.
 
 On cuda the port runs DNA and protein models, single-matrix with or
-without +I, and protein matrix mixtures (LG4M/LG4X), at up to the
-kernel's rate cap (``ops.blo_kernel.MAX_RATES``: 312 categories at K = 4,
-43 at K = 20, 27 for a mixture); binary and genotype models, and more
-rate categories than the cap, raise "not yet ported" there (they run on
-the CPU through the plain paths).
+without +I, and protein matrix mixtures (LG4M/LG4X), through the kernel
+at up to its rate cap (``ops.blo_kernel.MAX_RATES``: 312 categories at
+K = 4, 43 at K = 20, 27 for a mixture); binary and genotype models and
+``--raxml-blo`` through the torch twin, as the JAX package runs them on
+its XLA twin. More rate categories than the cap raise "not yet ported"
+there (they run on the CPU through the plain paths).
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ class PlacementEngine:
                 log.info("Using empirical p-inv: %.6f", model.pinv)
             if model.pinv > 0:
                 self._ref_intersection = inter  # [S] uint32
-        _check_device_model(self.device, model)
+        _check_device_model(self.device, model, self.options.sliding_blo)
 
         self.eig = eigen.decompose(model)
         self.consts = newton.eig_consts(self.eig, self.dtype, self.device)
@@ -147,7 +148,7 @@ class PlacementEngine:
         self.device = torch.device(device)
         self.dtype = (torch.float64 if self.options.compute_dtype == "f64"
                       else torch.float32)
-        _check_device_model(self.device, model)
+        _check_device_model(self.device, model, self.options.sliding_blo)
         self.eig = eigen.decompose(model)
         self.consts = newton.eig_consts(self.eig, self.dtype, self.device)
         # a copy: the caller's arrays may be read-only views (JAX's)
@@ -171,7 +172,7 @@ class PlacementEngine:
     def _finish_init(self, ref_logl: Optional[float] = None):
         self._escalations = 0  # chunks rescued by the wide-budget ladder
         # the Newton work the CUDA kernel executed, from its own counters
-        # (zero where the torch twin ran instead)
+        # (zero where the torch twin ran instead), and the twin's calls
         self.newton_work = blo_kernel.NewtonWork(self.device)
         # sanity check: finite reference-tree log-likelihood
         # (reference: src/tree/Tree.cpp:49-53)
@@ -323,12 +324,14 @@ class PlacementEngine:
         return tQ, invq
 
     def _use_kernel(self) -> bool:
-        """Dispatch the Newton stage to the CUDA kernel? Always on a cuda
-        device in f32, unless ``--pallas off``: what the kernel does not
-        take (``blo_kernel.blo_unsupported``: non-sliding BLO, states other
-        than 4 and 20, more rate categories than ``blo_kernel.MAX_RATES``)
-        raises "not yet ported" there rather than running the torch twin.
-        The twin serves the CPU, f64 and ``--pallas off``."""
+        """Dispatch the Newton stage to the CUDA kernel? On a cuda device
+        in f32, unless ``--pallas off`` or the model or mode is one that
+        the JAX package runs on its XLA twin (``blo_kernel.twin_route``:
+        ``--raxml-blo``, states other than 4 and 20), which take the torch
+        twin on the card too. What else the kernel does not take
+        (``blo_kernel.blo_unsupported``: more rate categories than
+        ``blo_kernel.MAX_RATES``) raises "not yet ported" there rather than
+        running the twin. The twin also serves the CPU and f64."""
         opt = self.options.pallas
         if opt == "off":
             return False
@@ -336,6 +339,12 @@ class PlacementEngine:
             if opt == "on":
                 raise ValueError(
                     "--pallas on requires a CUDA device and f32")
+            return False
+        if blo_kernel.twin_route(self.consts, self.options.sliding_blo):
+            if opt == "on":
+                raise ValueError(
+                    "--pallas on requires sliding BLO and a DNA or protein "
+                    "model: the CUDA kernel takes no other")
             return False
         why = blo_kernel.blo_unsupported(self.consts,
                                          self.options.sliding_blo)
@@ -839,7 +848,8 @@ class PlacementEngine:
                         as_d(pair_q[pad]), as_d(b_np),
                         as_d(begins[pair_q[pad]] - b_np),
                         as_d(spans[pair_q[pad]]),
-                        int(W), opts.sliding_blo, cap)
+                        int(W), opts.sliding_blo, cap,
+                        work=self.newton_work)
                     pending.append((sel, n, [_HostCopy(a) for a in res]))
             read_back(pending, done_out)
             return done_out
@@ -910,23 +920,21 @@ def state_from_numpy(consts, blo, table, dtype=None, device="cuda"):
     return consts_t, blo_t, table_t
 
 
-def _check_device_model(device: torch.device, model: Model):
+def _check_device_model(device: torch.device, model: Model,
+                        sliding: bool = True):
     """On the card the port places DNA (4-state) and protein (20-state)
     models with one substitution matrix, with or without +I (``+I{p}``,
     ``+IU{p}``, the empirical ``+IC``), and protein matrix mixtures
-    (LG4M/LG4X), with up to ``blo_kernel.MAX_RATES`` rate categories (312
-    at K = 4, 43 at K = 20, 27 for a mixture: every rate count whose
-    kernel tables fit shared memory); binary and genotype models, and more
-    rate categories, raise rather than running the plain paths there (the
-    JAX package runs binary and genotype models on its XLA twin, never on
-    a Pallas kernel)."""
-    if device.type != "cuda":
+    (LG4M/LG4X), through the Newton kernel with up to
+    ``blo_kernel.MAX_RATES`` rate categories (312 at K = 4, 43 at K = 20,
+    27 for a mixture: every rate count whose kernel tables fit shared
+    memory); more rate categories raise rather than running the plain
+    paths there. Binary and genotype models, and non-sliding BLO
+    (``sliding=False``), run on the torch twin at any rate count, as the
+    JAX package runs them on its XLA twin."""
+    if (device.type != "cuda" or not sliding
+            or model.num_states not in blo_kernel.K_STATES):
         return
-    if model.num_states not in blo_kernel.K_STATES:
-        raise NotImplementedError(
-            f"{model.num_states}-state models are not yet ported to the GPU "
-            "in epa_ng_tpu_torch "
-            "(run them with --device cpu, or with the JAX package)")
     mixture = model.submodels is not None and model.num_ratecats > 1
     cap = blo_kernel.MAX_RATES[(model.num_states, mixture)]
     if model.num_ratecats > cap:
@@ -974,10 +982,11 @@ def _blo_blocked(consts, tU, tV, ls, lengths, tQ, invq, e_ids, q_ids,
 def _blo_windowed(consts, tU, tV, ls, lengths, tQ, invq,
                   e_ids, q_ids, win_begin, local_begin, spans,
                   width: int, sliding: bool,
-                  max_smoothings: int = newton.SMOOTHINGS):
+                  max_smoothings: int = newton.SMOOTHINGS, work=None):
     """Gather per-pair site windows [width] out of the full-S tensors and
     run the twin's Newton batch on the compact windows (the kernel reads
-    its windows itself: _blo_blocked)."""
+    its windows itself: _blo_blocked). ``work`` (``NewtonWork``) counts
+    the call."""
     from epa_ng_tpu_torch.parallel.mesh import pair_windows
     tu, tv, tq, lw, mask, orig, iv = pair_windows(
         tU, tV, ls, lengths, tQ, invq, e_ids, q_ids, win_begin, local_begin,
@@ -985,6 +994,8 @@ def _blo_windowed(consts, tU, tV, ls, lengths, tQ, invq,
     logl, pendant, distal_rep, _, _, done = newton.blo_optimize_batch(
         consts, tu, tv, tq, lw, mask, orig, iv, sliding=sliding,
         max_smoothings=max_smoothings)
+    if work is not None:
+        work.add_twin()
     return logl, pendant, distal_rep, done
 
 

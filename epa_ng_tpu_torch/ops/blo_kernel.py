@@ -244,6 +244,15 @@ def kernel_width(spans) -> int:
     return max(32, -(-widest // 32) * 32)
 
 
+def twin_route(consts, sliding: bool = True) -> bool:
+    """True for the models and modes that the JAX package never gives its
+    Pallas kernel (``pallas_blo.blo_supported``) and runs on its XLA twin:
+    non-sliding (``--raxml-blo``) BLO, and state counts other than 4 and
+    20 (binary, genotype). The port runs the torch twin (ops.newton) there,
+    on the card as well."""
+    return not sliding or int(consts.A.shape[-1]) not in K_STATES
+
+
 def blo_unsupported(consts, sliding: bool = True):
     """Why the CUDA kernel cannot take this model, or None: it takes DNA
     (K = 4) and protein (K = 20) with one substitution matrix, and
@@ -855,12 +864,20 @@ class NewtonWork:
     """Running totals of the Newton work the kernel executed for one
     engine: pairs, smoothings and Newton iterations (both solves, every
     smoothing), summed on the device from the kernel's K5 counters, so
-    adding costs no host sync. The engine's dispatch and finalize threads
-    both launch the kernel, so updates take a lock."""
+    adding costs no host sync; and the calls of the torch twin
+    (``ops.newton.blo_optimize_batch``), which carries no counters. The
+    engine's dispatch and finalize threads both launch the Newton, so
+    updates take a lock."""
 
     def __init__(self, device):
         self._totals = torch.zeros(3, dtype=torch.int64, device=device)
+        self._twin_launches = 0
         self._lock = threading.Lock()
+
+    def add_twin(self):
+        """Count one call of the torch twin."""
+        with self._lock:
+            self._twin_launches += 1
 
     def add(self, live, counts):
         """Add one launch's per-pair counters (smoothings, iterations);
@@ -874,9 +891,10 @@ class NewtonWork:
         """The totals so far (one host sync)."""
         with self._lock:
             snap = self._totals.clone()
+            twin = self._twin_launches
         pairs, smooth, iters = (int(x) for x in snap.cpu())
         return dict(newton_pairs=pairs, newton_smoothings=smooth,
-                    newton_iters=iters)
+                    newton_iters=iters, twin_launches=twin)
 
 
 # --------------------------------------------------------------------------

@@ -171,28 +171,80 @@ def invariant_states(masks: np.ndarray, num_states: int) -> np.ndarray:
     return state
 
 
+def compute_clvs(ops: TreeOps, P: torch.Tensor, tip_clvs, num_rates: int):
+    """Run the traversal; returns (buffer [C,R,K,S], logscale [C,R,S]).
+    Sites ride the last axis, as in every CLV tensor of the package."""
+    return _compute_clvs_core(
+        ops.ops, P, torch.as_tensor(np.asarray(tip_clvs), dtype=P.dtype,
+                                    device=P.device),
+        ops.n_clvs, num_rates)
+
+
+def _clv_op(P1, P2, c1, c2, ls1, ls2):
+    """Ops of the traversal: parent CLVs from two child CLVs and their
+    edges' P matrices, rescaled per (rate, site); returns (clv [..., R, K,
+    S], log scale [..., R, S]) for one op or a batch of them."""
+    clv = torch.matmul(P1, c1) * torch.matmul(P2, c2)
+    # per-(site, rate) rescaling: the analog of libpll's
+    # PLL_ATTRIB_RATE_SCALERS. Joint per-site scaling underflows the slow
+    # gamma categories in f32 on deep trees (each category's scale drifts
+    # apart along the tree), which silently corrupts logls.
+    scale = torch.amax(clv, dim=-2)                         # [..., R, S]
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return clv / safe[..., None, :], ls1 + ls2 + torch.log(safe)
+
+
+def op_levels(ops_arr: np.ndarray) -> list:
+    """The ops of a schedule grouped into levels, in order: an op's level
+    is one more than its inputs' highest (tips are level 0), so the ops of
+    one level depend only on earlier levels."""
+    ops = np.asarray(ops_arr)
+    if not len(ops):
+        return []
+    level = np.zeros(int(ops[:, [0, 1, 3]].max()) + 1, dtype=np.int64)
+    lv = np.empty(len(ops), dtype=np.int64)
+    for k, (out, i1, _, i2, _) in enumerate(ops.tolist()):
+        lv[k] = level[out] = max(level[i1], level[i2]) + 1
+    return [ops[lv == v] for v in range(1, int(lv.max()) + 1)]
+
+
 def _compute_clvs_core(ops_arr: np.ndarray, P: torch.Tensor,
                        tip_clvs: torch.Tensor, n_clvs: int, num_rates: int):
-    """The traversal: one Python step per op of ``ops_arr`` (the JAX
-    package's ``lax.scan``), updating the buffers in place. Returns
-    (buffer [C,R,K,S], logscale [C,R,S]); sites ride the last axis."""
+    """The traversal (the JAX package's ``lax.scan`` over ``ops_arr``).
+    Returns (buffer [C,R,K,S], logscale [C,R,S]); sites ride the last
+    axis.
+
+    Without autograd, one Python step per op writes into preallocated
+    buffers in place. When a gradient is wanted (``P`` or the tips require
+    grad, as in ``core.evaluate``) autograd cannot run through those
+    writes: the ops then run level by level (:func:`op_levels`), each
+    level one batched ``_clv_op`` whose CLVs are written out of place
+    (``index_copy``), which also launches one batch per level instead of
+    one op at a time. The two forms do the same arithmetic per op; the
+    batched matmuls may round in another order."""
     T, S, K = tip_clvs.shape
-    buf = torch.zeros((n_clvs, num_rates, K, S), dtype=P.dtype,
-                      device=P.device)
-    buf[:T] = tip_clvs.permute(0, 2, 1)[:, None, :, :]
-    ls = torch.zeros((n_clvs, num_rates, S), dtype=P.dtype, device=P.device)
+    dev = P.device
+    tips = tip_clvs.permute(0, 2, 1)[:, None, :, :].expand(
+        T, num_rates, K, S)
+    if torch.is_grad_enabled() and (P.requires_grad
+                                    or tip_clvs.requires_grad):
+        buf = torch.cat([tips, torch.zeros((n_clvs - T, num_rates, K, S),
+                                           dtype=P.dtype, device=dev)])
+        ls = torch.zeros((n_clvs, num_rates, S), dtype=P.dtype, device=dev)
+        for lvl in op_levels(ops_arr):
+            out, i1, e1, i2, e2 = torch.as_tensor(
+                lvl.T, dtype=torch.long, device=dev)
+            clv, lsc = _clv_op(P[e1], P[e2], buf[i1], buf[i2], ls[i1],
+                               ls[i2])
+            buf = buf.index_copy(0, out, clv)
+            ls = ls.index_copy(0, out, lsc)
+        return buf, ls
+    buf = torch.zeros((n_clvs, num_rates, K, S), dtype=P.dtype, device=dev)
+    buf[:T] = tips
+    ls = torch.zeros((n_clvs, num_rates, S), dtype=P.dtype, device=dev)
     for out, i1, e1, i2, e2 in np.asarray(ops_arr).tolist():
-        m1 = torch.matmul(P[e1], buf[i1])                   # [R, K, S]
-        m2 = torch.matmul(P[e2], buf[i2])
-        clv = m1 * m2
-        # per-(site, rate) rescaling: the analog of libpll's
-        # PLL_ATTRIB_RATE_SCALERS. Joint per-site scaling underflows the
-        # slow gamma categories in f32 on deep trees (each category's scale
-        # drifts apart along the tree), which silently corrupts logls.
-        scale = torch.amax(clv, dim=1)                      # [R, S]
-        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-        buf[out] = clv / safe[:, None, :]
-        ls[out] = ls[i1] + ls[i2] + torch.log(safe)
+        buf[out], ls[out] = _clv_op(P[e1], P[e2], buf[i1], buf[i2], ls[i1],
+                                    ls[i2])
     return buf, ls
 
 
@@ -205,6 +257,13 @@ class EdgeTensors:
     lsU: torch.Tensor      # [E, R, S] per-rate log scale of U
     lsV: torch.Tensor      # [E, R, S]
     lengths: torch.Tensor  # [E]
+
+
+def build_edge_tensors(tree: Tree, eig: EigenModel, tip_clvs: np.ndarray,
+                       dtype=torch.float64, device="cuda") -> EdgeTensors:
+    edges, _ = build_reference_state(tree, eig, tip_clvs, dtype=dtype,
+                                     device=device)
+    return edges
 
 
 def build_reference_state(tree: Tree, eig: EigenModel, tip_clvs: np.ndarray,

@@ -338,16 +338,54 @@ def _smooth_step(c: EigConsts, tU, tV, tQ, ls, pinv_lin, site_mask,
             worse | converged)
 
 
+def _raxml_step(c: EigConsts, tU, tV, tQ, ls, pinv_lin, site_mask,
+                orig_len, pendant, distal, proximal, neg_logl):
+    """One smoothing of ``--raxml-blo`` for pairs that are still running:
+    NR on the pendant, then the distal, then the proximal length, each
+    independently in [BRLEN_MIN, BRLEN_MAX] with no sum constraint (like
+    pllmod_opt_optimize_branch_lengths_local with radius 1), each solve on
+    the lengths the previous ones left; then rescore, with the sliding
+    step's rollback and stop."""
+    tQrk = _q_rk(c, tQ)
+
+    def nr_branch(T, guess):
+        g = torch.where((guess < BRLEN_MIN) | (guess > BRLEN_MAX),
+                        torch.full_like(guess, BRLEN_DEFAULT), guess)
+        return _newton(c, T, pinv_lin, site_mask, BRLEN_MIN, BRLEN_MAX,
+                       BRLEN_MIN / 10.0, g)
+
+    MU = _apply_p(c, tU, proximal)
+    MV = _apply_p(c, tV, distal)
+    new_pendant = nr_branch(_sumtable(c, MU * MV, tQrk), pendant)
+    Mq = _apply_p(c, tQrk, new_pendant)
+    new_distal = nr_branch(_sumtable(c, Mq * MU, tV), distal)
+    MV2 = _apply_p(c, tV, new_distal)
+    new_proximal = nr_branch(_sumtable(c, Mq * MV2, tU), proximal)
+
+    MU2 = _apply_p(c, tU, new_proximal)
+    new_neg = -_logl(c, MU2 * MV2, tQ, new_pendant, pinv_lin, site_mask, ls)
+    worse = (new_neg - neg_logl) > torch.abs(new_neg) * 1e-14
+    converged = torch.abs(new_neg - neg_logl) < OPT_BRANCH_EPSILON
+    pick = lambda old, new: torch.where(worse, old, new)
+    return (pick(pendant, new_pendant), pick(distal, new_distal),
+            pick(proximal, new_proximal), pick(neg_logl, new_neg),
+            worse | converged)
+
+
 def _optimize_batch(c: EigConsts, tU, tV, tQ, ls, pinv_lin, site_mask,
-                    orig_len, max_smoothings: int = SMOOTHINGS):
+                    orig_len, max_smoothings: int = SMOOTHINGS,
+                    sliding: bool = True):
     """Optimize a batch of (query, edge) pairs. tU, tV: [B, R*K, W]
     eigen-transformed edge CLVs (tV scale-folded); tQ: [B, K, W]; ls,
     pinv_lin, site_mask: [B, W]; orig_len: [B]. Returns (logl, pendant,
     distal, proximal, done), each [B].
 
-    The JAX package vmaps a per-pair ``while_loop``; here the smoothing
-    loop runs over the still-active subset, which gives the same per-pair
-    trajectories (a pair's state never depends on another pair's)."""
+    ``sliding``: the pplacer smoothing (:func:`_smooth_step`), else the
+    independent ``--raxml-blo`` one (:func:`_raxml_step`). The JAX package
+    vmaps a per-pair ``while_loop``; here the smoothing loop runs over the
+    still-active subset, which gives the same per-pair trajectories (a
+    pair's state never depends on another pair's)."""
+    step = _smooth_step if sliding else _raxml_step
     half = orig_len / 2.0
     pendant = torch.full_like(orig_len, DEFAULT_PENDANT)
     distal, proximal = half.clone(), half.clone()
@@ -360,7 +398,7 @@ def _optimize_batch(c: EigConsts, tU, tV, tQ, ls, pinv_lin, site_mask,
         if act.numel() == 0:
             break
         sub = lambda x: x.index_select(0, act)
-        p, d, pr, n, dn = _smooth_step(
+        p, d, pr, n, dn = step(
             c, sub(tU), sub(tV), sub(tQ), sub(ls), sub(pinv_lin),
             sub(site_mask), sub(orig_len), sub(pendant), sub(distal),
             sub(proximal), sub(neg))
@@ -375,7 +413,9 @@ def _optimize_batch(c: EigConsts, tU, tV, tQ, ls, pinv_lin, site_mask,
 def blo_optimize_batch(c: EigConsts, tU, tV, tQ, ls, site_mask, orig_len,
                        inv_logfreq, sliding: bool = True,
                        max_smoothings: int = SMOOTHINGS):
-    """Batched thorough placement over a padded pair block.
+    """Batched thorough placement over a padded pair block: the pplacer
+    sliding smoothing, or with ``sliding=False`` the independent
+    ``--raxml-blo`` one (JAX ``_optimize_one_raxml``).
 
     tU, tV: [B, R*K, W] eigen-transformed per-pair edge CLV windows (tV
     scale-folded; see transform_edges); tQ: [B, K, W] eigen-transformed
@@ -387,13 +427,10 @@ def blo_optimize_batch(c: EigConsts, tU, tV, tQ, ls, site_mask, orig_len,
     done): the reported distal is rescaled to the original branch length
     like the reference (Tiny_Tree.cpp:183-184).
     """
-    if not sliding:
-        raise NotImplementedError(
-            "--raxml-blo (independent branch optimization) is not yet "
-            "ported to epa_ng_tpu_torch")
     # linear-space invariant term, counteracting the CLV scaling
     pinv_lin = torch.exp(inv_logfreq - ls) * site_mask
     logl, pendant, distal, proximal, done = _optimize_batch(
-        c, tU, tV, tQ, ls, pinv_lin, site_mask, orig_len, max_smoothings)
+        c, tU, tV, tQ, ls, pinv_lin, site_mask, orig_len, max_smoothings,
+        sliding)
     distal_rep = (orig_len / (distal + proximal)) * distal
     return logl, pendant, distal_rep, distal, proximal, done

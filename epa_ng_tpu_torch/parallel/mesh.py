@@ -125,7 +125,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
 
     ``has_pinv``: +I models; the kernel reads ``invq`` and ``ls``.
     ``work``: an ``ops.blo_kernel.NewtonWork`` to which the blocked kernel
-    branch adds the work it executed, from the kernel's own counters.
+    branch adds the work it executed, from the kernel's own counters, and
+    the twin branch its calls of the torch twin.
     """
     dtype = tU.dtype
     scores = _preplace_scores(table, codes, begins, spans)
@@ -176,6 +177,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
         p1 = phase1 if two_phase else max_sm
         logl, pendant, distal_rep, _, _, done = newton.blo_optimize_batch(
             consts, *args, sliding=sliding, max_smoothings=p1)
+        if work is not None:
+            work.add_twin()
         if two_phase:
             flat_valid = valid.reshape(-1)
             unconv = flat_valid & ~done
@@ -187,6 +190,8 @@ def placement_step(consts: newton.EigConsts, table, tU, tV, ls, lengths,
             args2 = tuple(a[idx2] for a in args)
             loglB, pendB, distB, _, _, _ = newton.blo_optimize_batch(
                 consts, *args2, sliding=sliding, max_smoothings=max_sm)
+            if work is not None:
+                work.add_twin()
             put = lambda x, y: x.index_copy(0, idx2,
                                             torch.where(fits2, y, x[idx2]))
             logl, pendant = put(logl, loglB), put(pendant, pendB)

@@ -26,6 +26,11 @@ from epa_ng_tpu_torch.core.engine import state_from_numpy
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from epa_ng_tpu_torch.ops import newton as tnewton
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
+
 GTR = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
 S = 200
 

@@ -3,6 +3,7 @@ K = 20 against the JAX package's blocked Pallas kernel in interpret mode
 (LG+G2, f32 on the CPU; see test_torch_blo_kernel_aa.py for the rule)."""
 
 import numpy as np
+import torch
 import jax.numpy as jnp
 import pytest
 
@@ -11,6 +12,11 @@ from epa_ng_tpu.ops import pallas_blo as jpb
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from test_torch_blo_kernel_aa import (T, _compare, _pairs, _per_pair_args,
                                       _state)
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

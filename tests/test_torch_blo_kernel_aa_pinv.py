@@ -4,12 +4,18 @@ K = 20 against the JAX package's +I Pallas kernel in interpret mode
 rule)."""
 
 import numpy as np
+import torch
 
 from epa_ng_tpu.ops import pallas_blo as jpb
 
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from test_torch_blo_kernel_aa import (T, _compare, _pairs, _per_pair_args,
                                       _state)
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
 
 
 def test_plain_matches_pallas_pinv_lg_interpret():

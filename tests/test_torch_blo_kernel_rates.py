@@ -32,6 +32,11 @@ from epa_ng_tpu_torch.core.engine import state_from_numpy
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from test_torch_blo_kernel_aa import _compare
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
+
 S = 64
 P = 128
 

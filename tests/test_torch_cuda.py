@@ -677,3 +677,89 @@ def test_engine_g16_takes_the_kernel(monkeypatch):
         agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
                      >= x.logls[0] - 1e-5 * abs(x.logls[0]))
     assert np.mean(close) >= 0.9 and np.mean(agree) >= 0.9
+
+
+def _agreement(want, got):
+    """Shares of queries whose best logl agrees to 1e-5 relative, and
+    whose top edge the reference scores within 1e-5 of its best."""
+    assert [p.seq_id for p in got] == [p.seq_id for p in want]
+    close, agree = [], []
+    for x, y in zip(want, got):
+        close.append(abs(y.logls[0] - x.logls[0]) <= 1e-5 * abs(x.logls[0]))
+        ll = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
+        agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
+                     >= x.logls[0] - 1e-5 * abs(x.logls[0]))
+    return np.mean(close), np.mean(agree)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model,alphabet,sliding", [
+    ("BIN+G2{1.2}", "01", True),
+    ("GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8}", "ACGTMRSWYK", True),
+    (GTR, "ACGT", False)])
+def test_engine_twin_paths_on_card(model, alphabet, sliding):
+    """Binary (K = 2) and genotype (K = 10) models and ``--raxml-blo`` run
+    the torch twin on the card (the JAX package runs them on its XLA twin),
+    fused step and exact path, never the kernel, and count its calls; the
+    placements agree with the port's f64 CPU engine (best logl within 1e-5
+    relative, top edge up to ties) on >= 90% of queries."""
+    dev = _card()
+    tree, ref, qry, _ = evolved_dataset(
+        n_taxa=24, sites=200, n_queries=32, seed=3,
+        model_str=model if alphabet != "ACGT" else None, alphabet=alphabet)
+    cpu = PlacementEngine(tree, ref, Model.from_string(model),
+                          Options(sliding_blo=sliding), device="cpu")
+    want = cpu.place_chunk(qry) + cpu._place_chunk_exact(
+        cpu.encode_msa(qry), 0)
+    eng = PlacementEngine(tree, ref, Model.from_string(model),
+                          Options(compute_dtype="f32", sliding_blo=sliding),
+                          device=dev)
+    before = bk.blo_newton.counts()
+    got = eng.place_chunk(qry)
+    got += eng._place_chunk_exact(eng.encode_msa(qry), 0)
+    assert bk.blo_newton.counts()["launches"] == before["launches"]
+    assert eng.newton_work.totals()["twin_launches"] > 0
+    close, agree = _agreement(want, got)
+    assert close >= 0.9 and agree >= 0.9
+
+
+@pytest.mark.requires_cuda
+def test_binary_store_places_on_card(tmp_path):
+    """A store dumped on the card (f32) and loaded there with ``-b``
+    places through the kernel like the direct run on the card."""
+    import json
+    import os
+
+    from epa_ng_tpu_torch.cli import main
+    from epa_ng_tpu_torch.utils.synth import write_fasta
+    _card()
+    tree, ref, qry, _ = evolved_dataset(n_taxa=24, sites=200, n_queries=32,
+                                        seed=3, model_str=GTR)
+    tpath = str(tmp_path / "tree.nwk")
+    with open(tpath, "w") as f:
+        f.write(tree.plain_newick() + "\n")
+    rpath, qpath = str(tmp_path / "ref.fasta"), str(tmp_path / "q.fasta")
+    write_fasta(ref, rpath)
+    write_fasta(qry, qpath)
+    common = ["--redo", "--device", "cuda"]
+    assert main(["--tree", tpath, "--ref-msa", rpath, "--model", GTR,
+                 "--dump-binary", "--outdir", str(tmp_path / "d")]
+                + common) == 0
+    store = str(tmp_path / "d" / "epa_binary_file.npz")
+    before = bk.blo_newton.counts()["launches"]
+    assert main(["-b", store, "--query", qpath, "--outdir",
+                 str(tmp_path / "b")] + common) == 0
+    assert bk.blo_newton.counts()["launches"] > before
+    assert main(["--tree", tpath, "--ref-msa", rpath, "--model", GTR,
+                 "--query", qpath, "--outdir", str(tmp_path / "x")]
+                + common) == 0
+
+    def top(d):
+        with open(os.path.join(d, "epa_result.jplace")) as f:
+            doc = json.load(f)
+        return {p["n"][0]: p["p"][0][:2] for p in doc["placements"]}
+    a, b = top(str(tmp_path / "x")), top(str(tmp_path / "b"))
+    assert a.keys() == b.keys() and len(a) == 32
+    same = [a[q][0] == b[q][0] and abs(a[q][1] - b[q][1])
+            <= 1e-5 * abs(a[q][1]) for q in a]
+    assert np.mean(same) >= 0.9

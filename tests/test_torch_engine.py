@@ -7,6 +7,7 @@ within 1e-6 relative (the jplace prints 10 significant digits; the two
 packages sum in another order).
 """
 
+import functools
 import json
 import os
 
@@ -28,6 +29,11 @@ from epa_ng_tpu_torch.io.fasta import MSA
 from epa_ng_tpu_torch.models import Model
 from epa_ng_tpu_torch.tree import Tree
 from epa_ng_tpu_torch.utils.options import Options
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
 
 GTR = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
 
@@ -93,6 +99,83 @@ def test_cli_parity_evolved(tmp_path, model, extra):
     a, b = _run_both(tmp_path, tpath, rpath, qpath, model, extra)
     assert len(a) == 64
     assert_same_placements(a, b)
+
+
+def _write_files(tmp_path, tree, ref, qry):
+    tpath = str(tmp_path / "tree.nwk")
+    with open(tpath, "w") as f:
+        f.write(tree.plain_newick() + "\n")
+    rpath, qpath = str(tmp_path / "ref.fasta"), str(tmp_path / "q.fasta")
+    write_fasta(ref, rpath)
+    write_fasta(qry, qpath)
+    return tpath, rpath, qpath
+
+
+@pytest.mark.parametrize("model,alphabet,extra", [
+    (GTR, "ACGT", ("--raxml-blo",)),
+    (GTR, "ACGT", ("--raxml-blo", "--no-heur")),
+    ("BIN+G2{1.2}", "01", ()),
+    ("GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8}", "ACGTMRSWYK", ())])
+def test_cli_parity_twin_paths(tmp_path, model, alphabet, extra):
+    """The paths that both packages run on their Newton twin, never on a
+    kernel: ``--raxml-blo`` (independent branch optimization), binary
+    (K = 2) and genotype (K = 10) models, on reads evolved under the
+    model over its alphabet (the genotype one in pll_map_diploid10's state
+    order)."""
+    tree, ref, qry, _ = evolved_dataset(
+        n_taxa=24, sites=160, n_queries=48, seed=7,
+        model_str=None if alphabet == "ACGT" else model, alphabet=alphabet)
+    paths = _write_files(tmp_path, tree, ref, qry)
+    a, b = _run_both(tmp_path, *paths, model, extra)
+    assert len(a) == 48
+    assert_same_placements(a, b)
+
+
+def test_cli_parity_opt_model(tmp_path):
+    """``--opt-model`` from the generic GTR+G start through both CLIs.
+    Two L-BFGS implementations reach the optimum by other paths, so the
+    placements after them agree to the optimum's precision: the top edge
+    up to ties on every query, and the best logl (which holds the rest of
+    the tree's likelihood over the read's sites) within OPT_EPSILON, the
+    optimizer's own stopping gap, of the JAX run's. To
+    1e-6: the port's ``--opt-model`` run against the JAX CLI placing on
+    the port's optimized tree and model (``optimize_model`` on the same
+    files, written out at full precision)."""
+    from epa_ng_tpu_torch.core.evaluate import OPT_EPSILON, optimize_model
+    from epa_ng_tpu_torch.io import fasta as tfio
+    tree, ref, qry, _ = evolved_dataset(n_taxa=16, sites=120, n_queries=32,
+                                        seed=3)
+    paths = _write_files(tmp_path, tree, ref, qry)
+    a, b = _run_both(tmp_path, *paths, "GTR+G", ("--opt-model",))
+    assert len(a) == len(b) == 32
+    best = lambda rows: max(r["likelihood"] for r in rows)
+    for q in a:
+        ll = {r["edge_num"]: r["likelihood"] for r in a[q]}
+        top = ll.get(b[q][0]["edge_num"], -np.inf)
+        assert top >= best(a[q]) - 1e-5 * abs(best(a[q])), q
+        assert abs(best(b[q]) - best(a[q])) <= OPT_EPSILON, q
+
+    # the reference as the CLI reads it: premasked by the columns that
+    # are gaps in every query (here the last one)
+    ttree = Tree.from_file(paths[0])
+    rinfo, qinfo = tfio.make_msa_info(paths[1]), tfio.make_msa_info(paths[2])
+    tfio.MSAInfo.or_mask(rinfo, qinfo)
+    tref = tfio.build_msa_from_file(paths[1], rinfo, True)
+    model = Model.from_string("GTR+G")
+    optimize_model(ttree, tref, model, device="cpu")
+    num = lambda v: f"{float(v):.17g}"
+    explicit = (f"GTR{{{'/'.join(num(r) for r in model.subst_rates)}}}"
+                f"+FU{{{'/'.join(num(f) for f in model.base_freqs)}}}"
+                f"+G4{{{num(model.alpha)}}}")
+    opt_tree = str(tmp_path / "optimized.nwk")
+    with open(opt_tree, "w") as f:
+        f.write(ttree.plain_newick(precision=17) + "\n")
+    jdir = str(tmp_path / "jax_on_port_optimum")
+    assert jax_main(["--tree", opt_tree, "--ref-msa", paths[1], "--query",
+                     paths[2], "--model", explicit, "--outdir", jdir,
+                     "--redo"]) == 0
+    assert_same_placements(
+        _placements(os.path.join(jdir, "epa_result.jplace")), b)
 
 
 @pytest.mark.parametrize("model", ["LG+G4{0.8}", "LG+I{0.2}+G4{0.8}"])
@@ -223,9 +306,8 @@ def test_from_precomputed_matches_jax_engine():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2x1"], ["--distributed"], ["--memsave"], ["--opt-model"],
-    ["--dump-binary"], ["-b", "x.bin"], ["--adaptive-split"],
-    ["--raxml-blo"]])
+    ["--mesh", "2x1"], ["--distributed"], ["--memsave"],
+    ["--adaptive-split"]])
 def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
     rc = torch_main(["--outdir", str(tmp_path), "--device", "cpu", *flag])
     assert rc == 2
@@ -233,8 +315,8 @@ def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
 
 
 @pytest.mark.parametrize("model,refused", [
-    ("LG+G4", False), ("LG+I+G4", False), ("BIN+G4", True),
-    ("GTGTR4+G4", True), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False),
+    ("LG+G4", False), ("LG+I+G4", False), ("BIN+G4", False),
+    ("GTGTR4+G4", False), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False),
     ("LG+IC+G4", False), ("mixture", False), ("GTR+G16", False),
     ("GTR+I+R10", False), ("LG+G16", False), ("LG+G44", True),
     ("GTR+G313", True)])
@@ -242,8 +324,9 @@ def test_cuda_refuses_unported_models(model, refused, mixture_both):
     """On the card DNA and protein run, single-matrix with or without +I
     (fixed or empirical p-inv), and protein matrix mixtures, up to the
     kernel's rate cap (16 gamma and 10 free rates run; 44 at 20 states and
-    313 at 4 are one past it); binary and genotype models are refused. The
-    check needs no card (it refuses before any tensor is made)."""
+    313 at 4 are one past it); binary and genotype models run too, on the
+    torch twin, as does ``--raxml-blo`` past the cap. The check needs no
+    card (it refuses before any tensor is made)."""
     model = mixture_both if model == "mixture" else model
     if refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -253,6 +336,8 @@ def test_cuda_refuses_unported_models(model, refused, mixture_both):
         _check_device_model(torch.device("cuda"), Model.from_string(model))
     _check_device_model(torch.device("cpu"), Model.from_string(model))
     _check_device_model(torch.device("cuda"), Model.from_string(GTR))
+    _check_device_model(torch.device("cuda"), Model.from_string(model),
+                        sliding=False)
 
 
 def test_pallas_on_needs_the_card():
@@ -276,7 +361,7 @@ def test_pallas_on_needs_the_card():
     ("cpu", torch.float32, "auto", 4, True, False, 4),
     ("cuda", torch.float32, "auto", 9, True, True, 4),
     ("cuda", torch.float32, "auto", 313, True, NotImplementedError, 4),
-    ("cuda", torch.float32, "auto", 4, False, NotImplementedError, 4),
+    ("cuda", torch.float32, "auto", 4, False, False, 4),
     ("cpu", torch.float32, "on", 4, True, ValueError, 4),
     ("cuda", torch.float32, "auto", 4, True, True, 20),
     ("cuda", torch.float32, "auto", 4, True, True, "mixture"),
@@ -285,16 +370,21 @@ def test_pallas_on_needs_the_card():
     ("cuda", torch.float32, "auto", 28, True, NotImplementedError,
      "mixture"),
     ("cpu", torch.float32, "auto", 4, True, False, "mixture"),
-    ("cuda", torch.float32, "auto", 4, True, NotImplementedError, 2)])
+    ("cuda", torch.float32, "auto", 4, True, False, 2),
+    ("cuda", torch.float32, "auto", 4, True, False, 10),
+    ("cuda", torch.float32, "auto", 313, False, False, 4),
+    ("cuda", torch.float32, "on", 4, True, ValueError, 2)])
 def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect,
                              states):
     """On a cuda device in f32 the Newton stage takes the kernel at every
-    window width, or raises "not yet ported"; only ``--pallas off``, f64 and
-    the CPU take the torch twin. The kernel takes 4 and 20 states and
+    window width, or raises "not yet ported"; ``--pallas off``, f64 and the
+    CPU take the torch twin, and so do what the JAX package runs on its
+    XLA twin: 2 and 10 states and non-sliding BLO (at any rate count),
+    where ``--pallas on`` is refused. The kernel takes 4 and 20 states and
     20-state matrix mixtures, 9 rate categories among them, up to its cap
-    (312 at 4 states, 43 at 20, 27 for a mixture; one more raises); 2
-    states raise. The rule needs no card: it reads the engine's device,
-    dtype, options and eigen constants."""
+    (312 at 4 states, 43 at 20, 27 for a mixture; one more raises). The
+    rule needs no card: it reads the engine's device, dtype, options and
+    eigen constants."""
     from types import SimpleNamespace
 
     from epa_ng_tpu_torch.ops import newton as tnewton
@@ -317,20 +407,10 @@ def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect,
             PlacementEngine._use_kernel(eng)
 
 
-@pytest.mark.parametrize("data,topk,route", [
-    ("evolved", 16, None), ("evolved", 10, "_redo_wide"),
-    ("random", 16, "_escalations"), ("evolved LG+G4", 16, None)])
-def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
-    """The engine's kernel routing (fused step, wide redo, escalation
-    ladder, exact ``_thorough`` slabs) driven on CPU tensors, where the
-    kernel's wrapper takes its plain version; against the twin routing of
-    the same f32 engine. A smaller fused budget (evolved, 10) sends a few
-    saturated queries through the wide redo; random queries have flat
-    posteriors and escalate the whole chunk. The two Newton forms round
-    differently in f32, so the best logl agrees to 1e-5 relative and a top
-    edge up to ties (the twin scores it within 1e-5 relative of its
-    best). ``evolved LG+G4`` runs the same routing at K = 20 on
-    LG-evolved reads."""
+@functools.lru_cache(maxsize=None)
+def _routing_twin(data):
+    """The routing cases' data and the f32 twin engine on it (the evolved
+    cases share one): (model, tree, reference, queries, engine)."""
     model = GTR
     if data == "evolved LG+G4":
         from epa_ng_tpu.utils.synth import AA
@@ -346,16 +426,39 @@ def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
         tree, ref, qry = synth_dataset(n_taxa=40, sites=160, n_queries=96,
                                        seed=3)
     ttree = Tree.from_string(tree.plain_newick())
-    tref, tq = MSA(), MSA()
-    for s in ref:
-        tref.append(s.header, s.sequence)
-    for s in qry:
-        tq.append(s.header, s.sequence)
-    opts = Options(compute_dtype="f32", chunk_size=96, fused_topk=topk)
-    twin = PlacementEngine(ttree, tref, Model.from_string(model), opts,
+    tref, tq = _port_msa(ref), _port_msa(qry)
+    twin = PlacementEngine(ttree, tref, Model.from_string(model),
+                           Options(compute_dtype="f32", chunk_size=96),
                            device="cpu")
+    return model, ttree, tref, tq, twin
+
+
+@functools.lru_cache(maxsize=None)
+def _routing_twin_exact(data):
+    """The twin's exact placements of the routing case (no fused budget)."""
+    *_, tq, twin = _routing_twin(data)
+    return twin._place_chunk_exact(twin.encode_msa(tq), 0)
+
+
+@pytest.mark.parametrize("data,topk,route", [
+    ("evolved", 16, None), ("evolved", 10, "_redo_wide"),
+    ("random", 16, "_escalations"), ("evolved LG+G4", 16, None)])
+def test_engine_kernel_routing_on_cpu(monkeypatch, data, topk, route):
+    """The engine's kernel routing (fused step, wide redo, escalation
+    ladder, exact ``_thorough`` slabs) driven on CPU tensors, where the
+    kernel's wrapper takes its plain version; against the twin routing of
+    the same f32 engine. A smaller fused budget (evolved, 10) sends a few
+    saturated queries through the wide redo; random queries have flat
+    posteriors and escalate the whole chunk. The two Newton forms round
+    differently in f32, so the best logl agrees to 1e-5 relative and a top
+    edge up to ties (the twin scores it within 1e-5 relative of its
+    best). ``evolved LG+G4`` runs the same routing at K = 20 on
+    LG-evolved reads."""
+    model, ttree, tref, tq, twin = _routing_twin(data)
+    twin.options.fused_topk = topk
     ref_pq = twin.place_chunk(tq)
-    ref_exact = twin._place_chunk_exact(twin.encode_msa(tq), 0)
+    ref_exact = _routing_twin_exact(data)
+    opts = Options(compute_dtype="f32", chunk_size=96, fused_topk=topk)
 
     from epa_ng_tpu_torch.ops import blo_kernel
     kern = PlacementEngine(ttree, tref, Model.from_string(model), opts,

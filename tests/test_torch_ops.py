@@ -27,6 +27,11 @@ from epa_ng_tpu_torch.ops import likelihood as tlik
 from epa_ng_tpu_torch.ops import lookup as tlookup
 from epa_ng_tpu_torch.ops import newton as tnewton
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
+
 GTR = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
 CPU = torch.device("cpu")
 
@@ -118,6 +123,34 @@ def test_build_reference_state(ref_state, compressed):
         assert lt == pytest.approx(ref_state["logl"], rel=1e-10)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_compute_clvs_forms_and_edge_tensors(ref_state, dtype):
+    """``compute_clvs`` against the JAX package's (f64, 1e-10), and the
+    traversal's two forms: the in-place one of the placement path and the
+    level-batched one that autograd runs through (``P`` requiring grad)
+    give identical buffers, in f64 and f32; ``build_edge_tensors`` is the
+    reference state's edge tensors."""
+    tree, eig, tip = ref_state["tree"], ref_state["eig"], ref_state["tip"]
+    ops = tclv.build_tree_ops(tree)
+    assert sum(len(lv) for lv in tclv.op_levels(ops.ops)) == len(ops.ops)
+    teig = teigen.decompose(TModel.from_string(GTR))
+    P = teigen.pmatrices(teig, tree.edge_lengths, dtype=dtype, device="cpu")
+    buf, ls = tclv.compute_clvs(ops, P, tip, 4)
+    gbuf, gls = tclv.compute_clvs(ops, P.clone().requires_grad_(True), tip,
+                                  4)
+    assert gbuf.requires_grad
+    assert torch.equal(gbuf.detach(), buf) and torch.equal(gls.detach(), ls)
+    if dtype == torch.float64:
+        jP = jeigen.pmatrices(eig, jnp.asarray(tree.edge_lengths))
+        jbuf, jls = jclv.compute_clvs(jclv.build_tree_ops(tree), jP, tip, 4)
+        close(jbuf, buf, rtol=1e-10, atol=1e-300)
+        close(jls, ls, rtol=1e-10, atol=1e-12)
+        et = tclv.build_edge_tensors(tree, teig, tip, device="cpu")
+        ej = jclv.build_edge_tensors(tree, eig, tip)
+        for f in ("U", "V", "lsU", "lsV", "lengths"):
+            close(getattr(ej, f), getattr(et, f), rtol=1e-10, atol=1e-300)
+
+
 def test_invariant_pattern_logls(ref_state):
     tree, eig = ref_state["tree"], ref_state["eig"]
     lj = jclv.invariant_pattern_logls(tree, eig)
@@ -176,8 +209,37 @@ def test_transforms_and_newton_twin(ref_state):
         np.testing.assert_allclose(np.asarray(out_t[i]),
                                    np.asarray(out_j[i]), atol=1e-7, rtol=0)
     np.testing.assert_array_equal(out_t[5].numpy(), np.asarray(out_j[5]))
-    with pytest.raises(NotImplementedError):
-        tnewton.blo_optimize_batch(tc, *[T(a) for a in args], sliding=False)
+
+
+@pytest.mark.parametrize("pinv", [False, True])
+def test_newton_twin_raxml_blo(ref_state, pinv):
+    """The non-sliding (``--raxml-blo``) twin against the JAX package's
+    ``blo_optimize_batch(sliding=False)`` on the same pairs: each
+    smoothing solves the pendant, distal and proximal lengths one by one
+    in [BRLEN_MIN, BRLEN_MAX]. With ``pinv`` a fifth of the in-span cells
+    carry an invariant term."""
+    c, tc = ref_state["consts"], tconsts(ref_state["eig"])
+    blo, tQ, pe, pq, mask = _pairs(ref_state, P=64, seed=3)
+    inv = np.full(mask.shape, -np.inf)
+    if pinv:
+        c, tc = c._replace(pinv=jnp.asarray(0.2)), tc._replace(
+            pinv=torch.tensor(0.2, dtype=torch.float64))
+        cells = np.random.default_rng(4).random(mask.shape) < 0.2
+        inv[cells] = np.log(0.2 * 0.25)
+    args = (blo.tU[pe], blo.tV[pe], tQ[pq], blo.ls[pe], mask,
+            blo.lengths[pe], inv)
+    out_j = jnewton.blo_optimize_batch(c, *args, sliding=False)
+    out_t = tnewton.blo_optimize_batch(tc, *[T(a) for a in args],
+                                       sliding=False)
+    np.testing.assert_allclose(np.asarray(out_t[0]), np.asarray(out_j[0]),
+                               atol=1e-8, rtol=0)
+    for i in (1, 2, 3, 4):
+        np.testing.assert_allclose(np.asarray(out_t[i]),
+                                   np.asarray(out_j[i]), atol=1e-7, rtol=0)
+    np.testing.assert_array_equal(out_t[5].numpy(), np.asarray(out_j[5]))
+    # the proximal length is free: the lengths need not sum to the edge's
+    sliding = tnewton.blo_optimize_batch(tc, *[T(a) for a in args])
+    assert not torch.allclose(out_t[3] + out_t[4], sliding[3] + sliding[4])
 
 
 @pytest.mark.parametrize("bf16", [False, True])

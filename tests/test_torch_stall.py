@@ -29,6 +29,11 @@ from epa_ng_tpu_torch.ops import blo_kernel as bk
 from epa_ng_tpu_torch.ops.newton import DEFAULT_PENDANT
 from epa_ng_tpu_torch.utils.options import Options
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
+
 GTR = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}"
 # (query, edge) pairs of the DNA headline data (chip_smoke.py: 512 taxa x
 # 512 sites, 8192 evolved reads, seed 0) that stall in f32

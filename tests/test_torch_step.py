@@ -26,6 +26,11 @@ from epa_ng_tpu_torch.core.engine import state_from_numpy
 from epa_ng_tpu_torch.ops import blo_kernel as bk
 from epa_ng_tpu_torch.parallel import mesh as tmesh
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and a thread per core in each of them oversubscribes the
+# CPU and slows the small tensor ops here by orders of magnitude
+torch.set_num_threads(1)
+
 TOPK = 8
 
 
@@ -161,9 +166,13 @@ def test_fused_step_kernel_branch_pinv_matches_jax(pinv_chunk):
     rows = np.all(~ref[5] | (out[6] > 0), axis=1)
     np.testing.assert_allclose(out[2][rows], ref[2][rows], atol=1e-6)
     # the kernel's counters reached the work tally: every computed pair
-    # ran at least one smoothing of two Newton solves
-    pairs, smooth, iters = work.totals().values()
+    # ran at least one smoothing of two Newton solves; the twin never ran
+    tot = work.totals()
+    pairs, smooth, iters = (tot[k] for k in ("newton_pairs",
+                                             "newton_smoothings",
+                                             "newton_iters"))
     assert pairs >= ok.sum() and smooth >= pairs and iters >= 2 * smooth
+    assert tot["twin_launches"] == 0
 
 
 def test_fused_step_packed_and_filtered(chunk):
