@@ -65,7 +65,29 @@ Phases (any failure exits non-zero and prints no result line):
    the small reference against the port's f64 CPU run (for
    ``--opt-model`` also the card's f32 optimum within OPT_EPSILON of the
    f64 one); and five L-BFGS steps of another ``--opt-model`` run under
-   torch.profiler.
+   torch.profiler, that run stopped after them;
+8. ``--memsave`` on the JAX bench's memsave cell (``synth_dataset(2048,
+   256, 2048, seed=19)``, 4,093 edges, GTR+G4, chunk 512): the resident
+   run, then three budgets through the CLI, each with the counts reset
+   just before and read just after: 0 (pure streaming: every pair on
+   streamed windows through the kernel's per-pair shape), half the host
+   store (the cached prefix's pairs through the blocked shape, the rest
+   streamed) and 1000 GB (the fused path); then the cell with a fifth of
+   its columns invariant under GTR+I{0.2}+G4, resident and at budget 0
+   (the +I per-pair shape). Per run q/s, the cache, the host store, the
+   bytes streamed, blocked and per-pair launches, and the device memory
+   the built engine holds (its cache, and no more) and adds while it
+   places (at most the resident run's temporaries plus its staging
+   rings, which stay within depth x their largest request); every tier
+   against the resident run and the tiers against each other (top edge
+   up to ties on >= 99% and the best logl on shared top edges within
+   MEMSAVE_LOGL_ABS; on every query 1e-5 relative against the resident
+   run and the fused tier, MEMSAVE_LOGL_ABS between the exact-path
+   tiers), and a control run at budget 0 with each streamed pair's mask
+   one site late that these gates must refuse; then the small references
+   under GTR+G4 and +I{0.2}+G4 (seed 5) at budget 0 and at a quarter of
+   the store, and a ``--dump-binary`` -> ``-b --memsave`` round trip,
+   against the f64 CPU run.
 
 ``python3 chip_smoke.py --fmad-ab`` runs phase 1 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
@@ -126,6 +148,27 @@ OPT_MODEL = "GTR+G"
 # does 5x the rate-state lanes per site at RK = 80
 AA_SMALL = (48, 200, 128, 32)
 MIX_SMALL = (32, 160, 96, 24)
+# --memsave: the JAX bench's memsave cell (bench.py:473-512), (taxa,
+# sites, queries, seed), placed in chunks of MEMSAVE_CHUNK
+MEMSAVE_CELL = (2048, 256, 2048, 19)
+MEMSAVE_CHUNK = 512
+# random reads tie across more edges than the default --filter-max (7)
+# keeps: every run of the cell keeps them all, so each run's top edge is
+# in the other runs' lists whenever they scored it (as small_reference
+# does for random data)
+MEMSAVE_KEEP = ("--filter-max", "256")
+# phase 8's logl tolerance: the cell's best logls are about -226,000,
+# where f32 values lie 2^-6 = 0.015625 apart; runs of one host build, and
+# the resident runs where they share the top edge, differ by at most two
+# such steps (0.03125), and a site mask one site late on the streamed
+# pairs (a control) by up to 1,905 (PERF.md, PR 8)
+MEMSAVE_LOGL_ABS = 0.0625
+# the device memory a built --memsave engine may hold beyond its cache
+# (the model's constants and character CLVs take kilobytes)
+MEMSAVE_REST_SLACK_MB = 1.0
+# what a --memsave run may add while placing beyond the resident run's
+# temporaries and its own staging rings
+MEMSAVE_PEAK_SLACK_MB = 16.0
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -712,6 +755,33 @@ def main_path(paths, n_queries, true_edges, device, model=MODEL,
     return stats
 
 
+def agreement(a, b, tol, absolute=False):
+    """Run ``a``'s jplace placements against run ``b``'s: the share of
+    queries whose top edge is ``b``'s top edge, the share whose top edge
+    ``b`` scores within ``tol`` (relative, or ``absolute``) of its own best
+    (short reads often tie exactly between edges that meet at a node), and
+    the largest relative and absolute differences of the best logl, over
+    every query and over the queries whose top edge both runs share."""
+    import numpy as np
+    best = lambda rows: max(r["likelihood"] for r in rows)
+    same = [a[q][0]["edge_num"] == b[q][0]["edge_num"] for q in a]
+    diff = [abs(best(a[q]) - best(b[q])) for q in a]
+    rel = [d / abs(best(b[q])) for d, q in zip(diff, a)]
+
+    def agrees(q):
+        ll = {r["edge_num"]: r["likelihood"] for r in b[q]}
+        top = ll.get(a[q][0]["edge_num"], -np.inf)
+        return top >= best(b[q]) - (tol if absolute
+                                    else tol * abs(best(b[q])))
+
+    shared = lambda xs: max([x for x, s in zip(xs, same) if s], default=0.0)
+    return dict(
+        top_edge_identical=float(np.mean(same)),
+        top_edge_up_to_ties=float(np.mean([agrees(q) for q in a])),
+        max_rel_best_logl=max(rel), max_rel_best_logl_same_top=shared(rel),
+        max_abs_best_logl=max(diff), max_abs_best_logl_same_top=shared(diff))
+
+
 def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
                     alphabet="ACGT", freqs=FREQS, random_data=False,
                     size=(64, 200, 256, 64), seed=5, data_model=None,
@@ -732,9 +802,8 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
     run; with ``binary`` each device first dumps the CLV store
     (``--dump-binary``) and then places from it (``-b``). Returns the
     agreement per configuration, the kernel's launch counts over the
-    card's runs and the calls of the torch twin they made."""
-    import numpy as np
-
+    card's runs and the calls of the torch twin they made (and, under
+    ``--memsave``, the host store's MB)."""
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.utils.synth import write_fasta
     outdir = os.path.join(OUT, name)
@@ -780,25 +849,18 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
                             binary=stores.get(dev))
             if dev == device:
                 twin += st["twin_launches"]
+                if "memsave_host_mb" in st:
+                    out["memsave_host_mb"] = st["memsave_host_mb"]
             runs.append(read_jplace(os.path.join(d, "epa_result.jplace")))
         a, b = runs
         check(a.keys() == b.keys() and len(a) == n,
               f"{name} {cfg} run lost queries")
-        best = lambda rows: max(r["likelihood"] for r in rows)
-
-        def agrees(q):
-            ll = {r["edge_num"]: r["likelihood"] for r in b[q]}
-            top = ll.get(a[q][0]["edge_num"], -np.inf)
-            return top >= best(b[q]) - 1e-5 * abs(best(b[q]))
-
-        tie = float(np.mean([agrees(q) for q in a]))
-        rel = max(abs(best(a[q]) - best(b[q])) / abs(best(b[q])) for q in a)
-        check(tie >= 0.99, f"{name} {cfg}: top placements agree (up to "
-              f"ties) on {tie:.3f} < 0.99")
-        check(rel <= 1e-5, f"{name} {cfg}: best logl rel diff {rel:.3g}")
-        out[cfg] = dict(top_edge_identical=float(np.mean(
-            [a[q][0]["edge_num"] == b[q][0]["edge_num"] for q in a])),
-            top_edge_up_to_ties=tie, max_rel_best_logl=rel)
+        out[cfg] = ag = agreement(a, b, 1e-5)
+        check(ag["top_edge_up_to_ties"] >= 0.99,
+              f"{name} {cfg}: top placements agree (up to ties) on "
+              f"{ag['top_edge_up_to_ties']:.3f} < 0.99")
+        check(ag["max_rel_best_logl"] <= 1e-5, f"{name} {cfg}: best logl "
+              f"rel diff {ag['max_rel_best_logl']:.3g}")
     out["launches"] = blo_newton.counts()
     out["twin_launches"] = twin
     return out
@@ -887,12 +949,17 @@ def device_time(prof):
             [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top])
 
 
+class _WindowDone(Exception):
+    """Raised out of the profiled ``--opt-model`` run once its window has
+    been traced: the rest of the run is phase 7a's."""
+
+
 def profile_opt_window(paths, device, skip=20, active=5):
     """Phase 7g: a ``--opt-model`` CLI run with torch.profiler on for
-    ``active`` L-BFGS steps after the first ``skip``: device time by
-    kernel and the device's busy share over that window's wall time (the
-    steps' objective evaluations, with and without the gradient, and the
-    line searches between them)."""
+    ``active`` L-BFGS steps after the first ``skip``, stopped there: device
+    time by kernel and the device's busy share over that window's wall
+    time (the steps' objective evaluations, with and without the
+    gradient, and the line searches between them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU,
@@ -910,13 +977,16 @@ def profile_opt_window(paths, device, skip=20, active=5):
             torch.cuda.synchronize()
             wall.append(time.perf_counter())
             prof.stop()
+            raise _WindowDone
         return out
 
     torch.optim.LBFGS.step = step
+    t0 = time.perf_counter()
     try:
-        stats, cli_wall = run_cli(paths, os.path.join(OUT, "profiled_opt"),
-                                  device, chunk=1024, model=OPT_MODEL,
-                                  extra=("--opt-model",))
+        run_cli(paths, os.path.join(OUT, "profiled_opt"), device, chunk=1024,
+                model=OPT_MODEL, extra=("--opt-model",))
+    except _WindowDone:
+        pass
     finally:
         torch.optim.LBFGS.step = lbfgs_step
     check(len(wall) == 2, f"--opt-model took {n[0]} L-BFGS steps, fewer "
@@ -926,8 +996,7 @@ def profile_opt_window(paths, device, skip=20, active=5):
     check(total_ms < window_s * 1e3, f"--opt-model profile: {total_ms} ms "
           f"of device time in a {window_s} s window")
     return dict(steps=active, after_steps=skip, window_s=window_s,
-                device_ms=total_ms, cli_wall_s=cli_wall,
-                opt_model_s=stats["opt_model_s"],
+                device_ms=total_ms, run_s=time.perf_counter() - t0,
                 busy_share=(total_ms / 1e3 / window_s if total_ms else None),
                 top_kernels=top)
 
@@ -1086,10 +1155,219 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
 
     # 7g: where the device time of the --opt-model run goes, over a
     # window of its L-BFGS steps (a whole run holds millions of profiler
-    # events, and did not finish under the profiler in the time limit)
+    # events, and did not finish under the profiler in the time limit);
+    # the run stops after the window, since 7a ran the whole of it
     res["opt_profile"] = profile_opt_window(opaths, "cuda")
     print("--opt-model profile: " + json.dumps(res["opt_profile"]),
           flush=True)
+    return res
+
+
+
+def memsave_run(paths, n_queries, name, budget=None, model=MODEL,
+                resident=None) -> dict:
+    """Phase 8: one CLI run of a memsave cell (:func:`main_path`'s counts
+    and checks), with ``--memsave --memsave-budget <budget>`` unless
+    ``budget`` is None (the resident engine), and the device memory it
+    held: ``rest_mb`` with the engine built and idle, ``peak_mb`` at most
+    while it placed (the CLI's ``device_mb_at_place`` and
+    ``device_peak_mb``, less what the process held before the run). A
+    --memsave run holds its cache at rest and no more (the store off the
+    device stays off it); while it places it adds at most the
+    ``resident`` run's temporaries plus its staging rings, which stay
+    within depth x their largest request."""
+    import gc
+
+    import torch
+    flags = MEMSAVE_KEEP if budget is None else (
+        "--memsave", "--memsave-budget", repr(budget), *MEMSAVE_KEEP)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e6
+    st = main_path(paths, n_queries, None, "cuda", model=model, name=name,
+                   chunk=MEMSAVE_CHUNK, extra=flags)
+    st.update(budget_gb=budget, rest_mb=st["device_mb_at_place"] - base,
+              peak_mb=st["device_peak_mb"] - base)
+    st["temp_mb"] = st["peak_mb"] - st["rest_mb"]
+    print(f"memsave {name}: " + json.dumps(st), flush=True)
+    check_main(name, st, "k4_launches", pinv=model == PINV_MODEL)
+    if budget is None:
+        return st
+    check(st["memsave_ring_mb"] <= st["memsave_ring_bound_mb"],
+          f"{name}: staging rings hold {st['memsave_ring_mb']} MB, above "
+          f"depth x their largest request {st['memsave_ring_bound_mb']} MB")
+    check(st["rest_mb"] <= st["memsave_cached_mb"] + MEMSAVE_REST_SLACK_MB,
+          f"{name}: the built engine holds {st['rest_mb']:.3f} MB on the "
+          f"device, above its cache {st['memsave_cached_mb']:.3f} MB + "
+          f"{MEMSAVE_REST_SLACK_MB} MB")
+    allowed = resident["temp_mb"] + st["memsave_ring_mb"]
+    check(st["temp_mb"] <= allowed + MEMSAVE_PEAK_SLACK_MB,
+          f"{name}: placing added {st['temp_mb']:.1f} MB on the device, "
+          f"above the resident run's {resident['temp_mb']:.1f} MB + the "
+          f"rings' {st['memsave_ring_mb']:.1f} MB + "
+          f"{MEMSAVE_PEAK_SLACK_MB} MB")
+    return st
+
+
+def memsave_gates(pl, pairs, every):
+    """Phase 8's agreement of jplace runs ``pl`` by name, for each (name,
+    other) of ``pairs``: the top edge up to ties on >= 99% of the queries
+    and the best logl within MEMSAVE_LOGL_ABS wherever both runs share
+    the top edge, both at that absolute tolerance; and on every query the
+    best logl within ``every`` (a relative tolerance, for runs whose
+    heuristic cut may keep another candidate set on a query), within
+    MEMSAVE_LOGL_ABS if ``every`` is "abs", not held if it is None."""
+    gates = {}
+    for name, other in pairs:
+        ag = agreement(pl[name], pl[other], MEMSAVE_LOGL_ABS, absolute=True)
+        gates[f"{name}_vs_{other}"] = ag
+        all_ok = (every is None
+                  or (ag["max_abs_best_logl"] <= MEMSAVE_LOGL_ABS
+                      if every == "abs" else
+                      ag["max_rel_best_logl"] <= every))
+        check(ag["top_edge_up_to_ties"] >= 0.99
+              and ag["max_abs_best_logl_same_top"] <= MEMSAVE_LOGL_ABS
+              and all_ok,
+              f"memsave {name} against {other}: {ag} (tolerance "
+              f"{MEMSAVE_LOGL_ABS} absolute, on every query {every})")
+    return gates
+
+
+def memsave_control(paths, n_queries, sound) -> dict:
+    """Phase 8's negative control: the budget-0 run again with each
+    streamed pair's site mask one site late (its last site dropped), a
+    fault that the logl gates must refuse against the sound run
+    ``sound`` (a jplace)."""
+    import torch
+
+    from epa_ng_tpu_torch.ops import blo_kernel
+    per_pair = blo_kernel.blo_optimize_batch_kernel
+
+    def late(consts, tU, tV, tQ, ls, site_mask, *a, **k):
+        mask = torch.zeros_like(site_mask)
+        mask[:, 1:] = site_mask[:, :-1]
+        return per_pair(consts, tU, tV, tQ, ls, mask, *a, **k)
+
+    outdir = os.path.join(OUT, "memsave_control")
+    blo_kernel.blo_optimize_batch_kernel = late
+    try:
+        run_cli(paths, outdir, "cuda", chunk=MEMSAVE_CHUNK,
+                extra=("--memsave", "--memsave-budget", "0.0",
+                       *MEMSAVE_KEEP))
+    finally:
+        blo_kernel.blo_optimize_batch_kernel = per_pair
+    pl = read_jplace(os.path.join(outdir, "epa_result.jplace"))
+    check(len(pl) == n_queries, "memsave control lost queries")
+    ag = agreement(pl, sound, MEMSAVE_LOGL_ABS, absolute=True)
+    print("memsave control: " + json.dumps(ag), flush=True)
+    check(ag["top_edge_up_to_ties"] < 0.99
+          or ag["max_abs_best_logl_same_top"] > MEMSAVE_LOGL_ABS,
+          f"memsave control: a mask one site late passed the gates: {ag}")
+    return ag
+
+
+def memsave_phase() -> dict:
+    """Phase 8: ``--memsave`` on the JAX bench's memsave cell at three
+    budgets against the resident run, the cell with invariant columns
+    under +I at budget 0 against its resident run, then the small
+    references."""
+    from epa_ng_tpu_torch.utils.synth import synth_dataset
+    n_taxa, sites, n, seed = MEMSAVE_CELL
+    t0 = time.perf_counter()
+    tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=sites, n_queries=n,
+                                   seed=seed)
+    paths = write_data(tree, ref, qry, os.path.join(OUT, "data_memsave"))
+    ref_i, qry_i, _ = with_invariant_sites(ref, qry, FREQS, INVARIANT_SHARE,
+                                           seed)
+    paths_i = write_data(tree, ref_i, qry_i,
+                         os.path.join(OUT, "data_memsave_pinv"))
+    print(f"memsave data: {n_taxa} taxa x {sites} sites, {n} random "
+          f"queries in {time.perf_counter() - t0:.2f} s", flush=True)
+    res = {"resident": memsave_run(paths, n, "memsave_resident")}
+    run = lambda key, gb: memsave_run(paths, n, f"memsave_{key}", gb,
+                                      resident=res["resident"])
+    tiers = {"stream": run("stream", 0.0)}
+    half = tiers["stream"]["memsave_host_mb"] / 2 / 1e3
+    tiers["half"] = run("half", half)
+    tiers["cached"] = run("cached", 1000.0)
+    res["pinv_resident"] = memsave_run(paths_i, n, "memsave_pinv_resident",
+                                       model=PINV_MODEL)
+    tiers["pinv_stream"] = memsave_run(paths_i, n, "memsave_pinv_stream",
+                                       0.0, model=PINV_MODEL,
+                                       resident=res["pinv_resident"])
+    res["tiers"] = tiers
+    E = 2 * n_taxa - 3  # the edges of an unrooted binary tree
+    st, hf, cv = tiers["stream"], tiers["half"], tiers["cached"]
+    check(st["memsave_cached_edges"] == 0 and st["memsave_cached_mb"] == 0,
+          f"budget 0 cached {st['memsave_cached_edges']} edges")
+    check(0 < hf["memsave_cached_edges"] < E,
+          f"half budget cached {hf['memsave_cached_edges']} of {E} edges")
+    check(cv["memsave_cached_edges"] == E and cv["memsave_ring_mb"] == 0,
+          "budget 1000 did not cover the store")
+    for key, tier in tiers.items():
+        if key != "cached":
+            check(tier["per_pair_launches"] > 0,
+                  f"{key}: no per-pair-shape launch")
+    check(st["blocked_launches"] == 0 and hf["blocked_launches"] > 0
+          and cv["blocked_launches"] > 0 and cv["per_pair_launches"] == 0
+          and tiers["pinv_stream"]["blocked_launches"] == 0,
+          "blocked and per-pair launches: " + json.dumps(
+              {k: (t["blocked_launches"], t["per_pair_launches"])
+               for k, t in tiers.items()}))
+    check(st["h2d_mb"] > hf["h2d_mb"] > 0 and cv["h2d_mb"] == 0,
+          f"bytes streamed {st['h2d_mb']}, {hf['h2d_mb']}, {cv['h2d_mb']}")
+    pl = {k: read_jplace(os.path.join(OUT, k, "epa_result.jplace"))
+          for k in ("memsave_resident", "memsave_stream", "memsave_half",
+                    "memsave_cached", "memsave_pinv_resident",
+                    "memsave_pinv_stream")}
+    pl = {k[len("memsave_"):]: v for k, v in pl.items()}
+    # the tiers share one host build: the exact-path tiers (0 and half)
+    # differ only by route (blocked against per-pair), within
+    # MEMSAVE_LOGL_ABS on every query. The resident runs are their own f32
+    # builds on the card, and the covering tier takes the fused step, whose
+    # one GEMM over every edge rounds the preplacement scores otherwise than
+    # 512-edge blocks: their heuristic cut may keep another candidate set
+    # on a query, so the budget tiers are held on every query to the small
+    # references' 1e-5 relative, and the +I tier (where one read's
+    # candidate sets differed: PERF.md, phase 8) to the tie test alone
+    gates = memsave_gates(pl, [("half", "stream")], "abs")
+    gates.update(memsave_gates(pl, [
+        ("stream", "resident"), ("half", "resident"), ("cached", "resident"),
+        ("cached", "stream"), ("cached", "half")], 1e-5))
+    gates.update(memsave_gates(pl, [("pinv_stream", "pinv_resident")],
+                               None))
+    res["agreement"] = gates
+    print("memsave agreement: " + json.dumps(gates), flush=True)
+    res["control"] = memsave_control(paths, n, pl["stream"])
+
+    # the small references against the f64 CPU run: budget 0 and a
+    # quarter of the card's store, without and with +I, and -b --memsave
+    flags = lambda gb: ("--memsave", "--memsave-budget", repr(gb))
+    small = {"stream": small_reference("cuda", name="small_ms",
+                                       extra=flags(0.0))}
+    quarter = small["stream"]["memsave_host_mb"] / 4 / 1e3
+    small["quarter"] = small_reference("cuda", name="small_ms_q",
+                                       extra=flags(quarter))
+    for key, gb in (("pinv_stream", 0.0), ("pinv_quarter", quarter)):
+        small[key] = small_reference(
+            "cuda", model=PINV_MODEL, invariant_share=INVARIANT_SHARE,
+            name=f"small_ms_{key}", extra=flags(gb))
+    small["binary"] = small_reference("cuda", name="small_ms_b",
+                                      binary=True, extra=flags(0.0))
+    for key, sm in small.items():
+        print(f"small reference --memsave {key}: " + json.dumps(sm),
+              flush=True)
+        la = sm["launches"]
+        check(la["per_pair_launches"] > 0 and sm["twin_launches"] == 0,
+              f"--memsave {key} small reference: {la['per_pair_launches']} "
+              f"per-pair launches, {sm['twin_launches']} twin launches")
+        check(la["pinv_launches"] == (la["launches"] if "pinv" in key
+                                      else 0),
+              f"--memsave {key} small reference: launches {la}")
+        check((la["blocked_launches"] > 0) == ("quarter" in key),
+              f"--memsave {key} small reference: launches {la}")
+    small["quarter_gb"] = quarter
+    res["small"] = small
     return res
 
 
@@ -1275,6 +1553,17 @@ def main(argv=()) -> int:
         # reset just before and read just after
         rest = rest_of_cli(paths, n_queries, data[3])
 
+        # phase 8: --memsave, each tier with its counts reset just before
+        # and read just after
+        ms = memsave_phase()
+        ms_tiers, ms_small = ms["tiers"], ms["small"]
+        ms_launches = lambda shape, keys: {k: ms_tiers[k][shape]
+                                           for k in keys}
+        ms_small_pp = lambda keys: {
+            k: ms_small[k]["launches"]["per_pair_launches"] for k in keys}
+        ms_pp = ms_launches("per_pair_launches",
+                            ("stream", "half", "cached"))
+
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
         shapes = lambda p, keys=("blocked", "blocked_widest_shared",
                                  "blocked_device_memory", "per_pair",
@@ -1293,9 +1582,10 @@ def main(argv=()) -> int:
             kernel_entry(
                 "blo_newton", "epa_ng_tpu/ops/pallas_blo.py:117",
                 stats["launches"], par["blocked"],
-                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
                 launches_rest_of_cli={
                     k: rest[k]["launches"] for k in ("opt_model", "binary")},
+                launches_memsave=ms_launches(
+                    "blocked_launches", ("stream", "half", "cached")),
                 instantiation="GTR+G4: K = 4, R = 4", **team(par),
                 parity={**shapes(par, ("blocked", "blocked_widest_shared",
                                        "blocked_device_memory",
@@ -1310,12 +1600,27 @@ def main(argv=()) -> int:
                                         "blocked_device_memory", "pv")),
                         **tol}),
             kernel_entry(
+                "blo_newton (per-pair)", "epa_ng_tpu/ops/pallas_blo.py:65",
+                sum(ms_pp.values()), par["per_pair"],
+                launches_memsave=ms_pp,
+                launches_small_reference=ms_small_pp(
+                    ("stream", "quarter", "binary")),
+                launches_note="per-pair-shape launches over the GTR+G4 "
+                "--memsave tiers of phase 8 (streamed misses)",
+                instantiation="GTR+G4: K = 4, R = 4", **team(par),
+                parity={"per_pair": par["per_pair"], **tol}),
+            kernel_entry(
                 "blo_newton_pinv (per-pair)",
                 "epa_ng_tpu/ops/pallas_blo.py:104",
-                pstats["pinv_launches"], ppar["per_pair"],
-                launches_note="the +I kernel's launches on the +I main "
-                "path; K2 and K4 are one CUDA kernel, which the engine "
-                "calls through the blocked shape", **team(ppar),
+                ms_tiers["pinv_stream"]["per_pair_launches"],
+                ppar["per_pair"],
+                launches_memsave=ms_launches("per_pair_launches",
+                                             ("pinv_stream",)),
+                launches_small_reference=ms_small_pp(
+                    ("pinv_stream", "pinv_quarter")),
+                launches_note="per-pair-shape launches of the +I "
+                "--memsave tier of phase 8 (the cell with invariant "
+                "columns under GTR+I{0.2}+G4, budget 0)", **team(ppar),
                 parity={"per_pair": ppar["per_pair"], **tol}),
             kernel_entry(
                 "blo_newton_counted", "epa_ng_tpu/ops/pallas_blo.py:86",

@@ -31,8 +31,8 @@ LAST_RUN_STATS: dict = {}
 
 # (attribute, flag) of options whose machinery is not in this port yet
 NOT_YET_PORTED = (
-    ("memsave", "--memsave"), ("adaptive_split", "--adaptive-split"),
-    ("mesh", "--mesh"), ("distributed", "--distributed"),
+    ("mesh", "--mesh"), ("adaptive_split", "--adaptive-split"),
+    ("distributed", "--distributed"),
 )
 
 BANNER = r"""
@@ -150,11 +150,17 @@ def build_parser() -> argparse.ArgumentParser:
                            "stage.")
     comp.add_argument("--memsave", action="store_true",
                       help="Out-of-core mode for trees whose tensors "
-                           "exceed device memory. (not yet ported)")
+                           "exceed device memory: the reference state "
+                           "stays in host RAM and streams to the device "
+                           "per chunk (the analog of the reference's -b "
+                           "CLV paging).")
     comp.add_argument("--memsave-budget", type=_nonneg_float, default=None,
                       metavar="GB",
-                      help="--memsave device-cache budget in GB. (not yet "
-                           "ported)")
+                      help="--memsave device-cache budget in GB: a prefix "
+                           "of the reference-state tensors stays "
+                           "device-resident and only the rest streams "
+                           "(default: auto from device memory; 0 = pure "
+                           "streaming).")
     comp.add_argument("--lookup-dtype", choices=["auto", "bf16"],
                       default=None,
                       help="Preplacement lookup-table storage: bf16 halves "
@@ -330,6 +336,15 @@ def main(argv=None) -> int:
     from epa_ng_tpu_torch.io import fasta as fio
     from epa_ng_tpu_torch.models import Model
 
+    if options.memsave:
+        # the reference state is built on the CPU and kept in host RAM;
+        # placement runs on ``device``
+        from epa_ng_tpu_torch.core.memsave import OutOfCoreEngine
+        engine_cls = OutOfCoreEngine
+        log.info("Selected: out-of-core (--memsave) placement")
+    else:
+        engine_cls = PlacementEngine
+
     # --- build or load the reference state
     opt_stats = {}
     if options.load_binary_mode:
@@ -337,10 +352,14 @@ def main(argv=None) -> int:
         log.info("Loading from binary: %s", args.binary)
         t_build = time.time()
         try:
-            engine = load_binary(args.binary, options, device=device)
+            engine = load_binary(args.binary, options, engine_cls=engine_cls,
+                                 device=device)
         except NotImplementedError as e:
             log.error("%s", e)
             return 2
+        except ValueError as e:
+            log.error("%s", e)
+            return 1
         build_s = time.time() - t_build
         tree = engine.tree
         qry_info = fio.make_msa_info(args.query) if args.query else None
@@ -406,11 +425,13 @@ def main(argv=None) -> int:
                              **{f"opt_model_{k}": v for k, v in opt.items()})
         t_build = time.time()
         try:
-            engine = PlacementEngine(tree, ref_msa, model, options,
-                                     device=device)
+            engine = engine_cls(tree, ref_msa, model, options, device=device)
         except NotImplementedError as e:
             log.error("%s", e)
             return 2
+        except ValueError as e:
+            log.error("%s", e)
+            return 1
         build_s = time.time() - t_build
 
         if options.dump_binary_mode:
@@ -435,7 +456,16 @@ def main(argv=None) -> int:
     from epa_ng_tpu_torch.core import chunk as chunk_mod
     from epa_ng_tpu_torch.core.pipeline import StreamingPipeline
     from epa_ng_tpu_torch.io.jplace import JplaceWriter
+    from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
 
+    # the device memory that the built engine holds, and the peak while it
+    # places (the allocator's counts, for the whole process)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        mem_at_place = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    per_pair_at_place = blo_newton.counts()["per_pair_launches"]
     start_place = time.time()
     reader = fio.make_msa_reader(args.query, qry_info, options.premasking,
                                  split=True)
@@ -489,6 +519,12 @@ def main(argv=None) -> int:
     pipeline = StreamingPipeline(read_chunk, compute, write)
     pipeline.run()
     writer.close()
+    memory = {}
+    if on_card:
+        torch.cuda.synchronize(device)
+        memory = dict(device_mb_at_place=mem_at_place / 1e6,
+                      device_peak_mb=(torch.cuda.max_memory_allocated(device)
+                                      / 1e6))
     log.debug("Stage times: read %.2fs compute %.2fs write %.2fs",
               pipeline.read_timer.sum(), pipeline.compute_timer.sum(),
               pipeline.write_timer.sum())
@@ -512,7 +548,15 @@ def main(argv=None) -> int:
         emit_s=stage_s["emit"],
         # the CUDA kernel's executed Newton work, from its counters, and
         # the calls of the torch twin (twin_launches)
-        **engine.newton_work.totals())
+        **engine.newton_work.totals(),
+        # the kernel's launches in the per-pair shape (--memsave's streamed
+        # windows), apart from the blocked ones
+        per_pair_launches=(blo_newton.counts()["per_pair_launches"]
+                           - per_pair_at_place),
+        **memory,
+        # --memsave: the cached prefix, the pairs placed against it and on
+        # streamed windows, and the bytes streamed to the device
+        **(engine.memsave_stats() if options.memsave else {}))
     log.info("Time spent placing: %ds", int(time.time() - start_place))
     log.info("Elapsed Time: %ds", int(time.time() - start_all))
     return 0

@@ -654,16 +654,19 @@ class _BloNewton:
     runtime-R instantiation, the K = 20 team's warps walking rates), and
     one count per instantiation family: ``k4_launches`` (DNA),
     ``k20_launches`` (protein, one matrix) and ``mixture_launches``
-    (protein matrix mixtures). The two shared libraries (without and with
-    +I) are built with nvcc at first use into ``epa_ng_tpu_torch/build/``;
-    :meth:`build_all` builds both at once. ``fmad`` turns on nvcc's
-    mul+add contraction (FMA); it is off, so the kernel rounds as its
-    plain version does (csrc/blo_newton.cu), and only the FMA timing of
-    ``chip_smoke.py --fmad-ab`` turns it on."""
+    (protein matrix mixtures); and one per call shape: ``blocked_launches``
+    (pairs reading windows of the full stores, K1/K2) and
+    ``per_pair_launches`` (pre-gathered per-pair windows, K3/K4). The two
+    shared libraries (without and with +I) are built with nvcc at first
+    use into ``epa_ng_tpu_torch/build/``; :meth:`build_all` builds both at
+    once. ``fmad`` turns on nvcc's mul+add contraction (FMA); it is off,
+    so the kernel rounds as its plain version does (csrc/blo_newton.cu),
+    and only the FMA timing of ``chip_smoke.py --fmad-ab`` turns it on."""
 
     _COUNTS = ("launches", "pinv_launches", "counted_launches",
                "past8_launches", "k4_launches", "k20_launches",
-               "mixture_launches")
+               "mixture_launches", "blocked_launches",
+               "per_pair_launches")
 
     def __init__(self, fmad: bool = False):
         self._counts = dict.fromkeys(self._COUNTS, 0)
@@ -755,12 +758,15 @@ class _BloNewton:
     def __call__(self, tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
                  orig_len, skip, width: int,
                  max_smoothings: int = SMOOTHINGS,
-                 counters: bool = False, invq=None, ls=None, omp=None):
+                 counters: bool = False, invq=None, ls=None, omp=None,
+                 per_pair: bool = False):
         """CPU tensors: the plain version. CUDA tensors: the kernel (or a
         ValueError/RuntimeError; nothing falls back). ``invq`` [Q, S],
         ``ls`` [E, S] and ``omp`` (1 - pinv, a float or a 1-element
         tensor) select the +I kernel; ``counters`` appends the per-pair
-        executed smoothings and Newton iterations (int32)."""
+        executed smoothings and Newton iterations (int32). ``per_pair``
+        says the caller passes pre-gathered windows (row p of the stores
+        is pair p's), which the launch counts apart."""
         if tU.device.type != "cuda":
             return blo_newton_plain(tables, tU, tV, tQ, e_ids, q_ids, begins,
                                     spans, orig_len, skip, width,
@@ -852,7 +858,9 @@ class _BloNewton:
             for key, on in (("launches", True), ("pinv_launches", has_pinv),
                             ("counted_launches", counters),
                             ("past8_launches", R > STATIC_RATES),
-                            (family, True)):
+                            (family, True),
+                            ("per_pair_launches", per_pair),
+                            ("blocked_launches", not per_pair)):
                 self._counts[key] += on
         return tuple(outs + counts)
 
@@ -989,7 +997,7 @@ def blo_optimize_batch_kernel(consts, tU, tV, tQ, ls, site_mask, orig_len,
                     omp=_omp(consts, tU.dtype))
     out = blo_newton(
         tables, tU, tV, tQ, ids, ids, begins, spans, orig_len, skip, W,
-        max_smoothings, counters=counters, **pinv)
+        max_smoothings, counters=counters, per_pair=True, **pinv)
     logl, pendant, distal, proximal, done = out[:5]
     logl = logl + torch.sum(site_mask * ls, dim=1)
     distal_rep = (orig_len / (distal + proximal)) * distal

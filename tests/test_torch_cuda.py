@@ -763,3 +763,61 @@ def test_binary_store_places_on_card(tmp_path):
     same = [a[q][0] == b[q][0] and abs(a[q][1] - b[q][1])
             <= 1e-5 * abs(a[q][1]) for q in a]
     assert np.mean(same) >= 0.9
+
+
+@pytest.mark.requires_cuda
+def test_memsave_half_budget_on_card():
+    """``--memsave`` at half the host store's size: the cached prefix's
+    pairs through the blocked kernel, the streamed ones through the
+    per-pair shape, both counted at the launch; placements agree with the
+    resident engine on the card (best logl within 1e-5 relative, top edge
+    up to ties) on >= 99% of queries. The built engine holds its cache on
+    the device and no more; placing adds at most the resident engine's
+    temporaries, its staging rings and 2 MB."""
+    from epa_ng_tpu_torch.core.memsave import OutOfCoreEngine
+    dev = _card()
+    tree, ref, qry, _ = evolved_dataset(n_taxa=64, sites=200, n_queries=256,
+                                        seed=21, model_str=GTR)
+    opts = lambda **kw: Options(compute_dtype="f32", **kw)
+    mb = lambda: torch.cuda.memory_allocated(dev) / 1e6
+
+    def held(make):
+        """(engine, MB it holds built, MB its exact path's placing adds,
+        placements)"""
+        torch.cuda.synchronize()
+        base = mb()
+        eng = make()
+        torch.cuda.synchronize()
+        rest = mb()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = eng._place_chunk_exact(eng.encode_msa(qry), 0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e6
+        return eng, rest - base, peak - rest, got
+
+    res, res_rest, res_temp, want = held(lambda: PlacementEngine(
+        tree, ref, Model.from_string(GTR), opts(), device=dev))
+    del res
+    probe = OutOfCoreEngine(tree, ref, Model.from_string(GTR),
+                            opts(memsave=True, memsave_budget_gb=0.0),
+                            device=dev)
+    half = probe.host_resident_bytes() / 2 / 1e9
+    del probe
+    before = bk.blo_newton.counts()
+    eng, rest, temp, got = held(lambda: OutOfCoreEngine(
+        tree, ref, Model.from_string(GTR),
+        opts(memsave=True, memsave_budget_gb=half), device=dev))
+    st = eng.memsave_stats()
+    assert rest <= st["memsave_cached_mb"] + 0.25 < res_rest
+    assert st["memsave_ring_mb"] <= st["memsave_ring_bound_mb"]
+    assert temp <= res_temp + st["memsave_ring_mb"] + 2.0
+    assert 0 < st["memsave_cached_edges"] < eng.num_edges
+    assert st["memsave_hit_pairs"] > 0 and st["memsave_streamed_pairs"] > 0
+    assert st["h2d_mb"] > 0
+    after = bk.blo_newton.counts()
+    per_pair, blocked = (after[k] - before[k]
+                         for k in ("per_pair_launches", "blocked_launches"))
+    assert per_pair > 0 and blocked > 0
+    assert eng.newton_work.totals()["twin_launches"] == 0
+    close, agree = _agreement(want, got)
+    assert close >= 0.99 and agree >= 0.99

@@ -306,9 +306,11 @@ def test_from_precomputed_matches_jax_engine():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2x1"], ["--distributed"], ["--memsave"],
+    ["--mesh", "2x1"], ["--distributed"], ["--memsave", "--mesh", "2x1"],
     ["--adaptive-split"]])
 def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
+    """The flags not yet ported exit 2 before anything else, --mesh
+    beside the ported --memsave too."""
     rc = torch_main(["--outdir", str(tmp_path), "--device", "cpu", *flag])
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err
