@@ -54,9 +54,10 @@ Phases (any failure exits non-zero and prints no result line):
    under torch.profiler (device time by kernel, busy share);
 7. the rest of the one-card CLI, each path with the counts reset just
    before it and read just after: ``--opt-model`` from the generic GTR+G
-   start on the JAX bench's opt_model shape (``synth_dataset(256, 256,
-   seed=37)``, f32), then 2048 reads placed on the optimized model
-   through the kernel; ``--dump-binary`` on the headline, then ``-b``
+   start on the JAX bench's opt_model cell cut to 64 taxa
+   (``synth_dataset(64, 256, seed=37)``, f32), then 2048 reads placed on
+   the optimized model through the kernel; ``--dump-binary`` on the
+   headline, then ``-b``
    placing its 8192 reads from the store through the kernel;
    ``--raxml-blo`` on the headline, and BIN+G2{1.2} and
    GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8} at its shape (evolved
@@ -64,8 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
    Newton only (0 kernel launches, ``twin_launches`` > 0); the five on
    the small reference against the port's f64 CPU run (for
    ``--opt-model`` also the card's f32 optimum within OPT_EPSILON of the
-   f64 one); and five L-BFGS steps of another ``--opt-model`` run under
-   torch.profiler, that run stopped after them;
+   f64 one, on 32 taxa); and five L-BFGS steps of another
+   ``--opt-model`` run under torch.profiler, after its first two, that
+   run stopped after them;
 8. ``--memsave`` on the JAX bench's memsave cell (``synth_dataset(2048,
    256, 2048, seed=19)``, 4,093 edges, GTR+G4, chunk 512): the resident
    run, then three budgets through the CLI, each with the counts reset
@@ -88,6 +90,30 @@ Phases (any failure exits non-zero and prints no result line):
    under GTR+G4 and +I{0.2}+G4 (seed 5) at budget 0 and at a quarter of
    the store, and a ``--dump-binary`` -> ``-b --memsave`` round trip,
    against the f64 CPU run.
+
+9. multi-device and multi-process placement on the one card, each path
+   with the counts reset just before it and read just after: (a)
+   ``--mesh 1x1`` through the CLI on the headline and the +I data (the
+   JAX bench's mesh1x1 cell: the state built on the CPU, the sharded step
+   with the blocked kernel on its shard), against phase 4's and 4b's runs
+   (phase 8's gates: top edge up to ties on >= 99%, shared top edges
+   within MEMSAVE_LOGL_ABS), with q/s and its ratio to the resident run;
+   (b) the JAX bench's bigtree evolved cell (2048 taxa x 256 sites, 4,093
+   edges, 2048 reads, seed 19, chunk 512) through the library with
+   ``make_mesh(1, 4, [cuda:0] * 4)`` and ``make_mesh(2, 2, [cuda:0] *
+   4)`` attached to a CPU-built engine, against the resident engine
+   (every shard's blocked launches, never the twin, each shard's bytes
+   and the pad edges), then a forced exact redo of 256 pairs through the
+   mesh engine's ``_thorough`` (the per-pair shape on the host store's
+   windows) against the resident engine's; (c) two CLI processes on the
+   card joined by ``--distributed 127.0.0.1:PORT,2,RANK`` (gloo), even
+   and with ``--adaptive-split``: the merged jplace holds every name
+   once in input order, no shard is left, each rank launched the kernel
+   and never the twin (its log's "Newton:" line), and the adaptive
+   shards cover the file once; (d) the JAX CLI's refusals: a mesh of
+   more cards than there are, a dp that is not a power of two, --mesh
+   with --memsave, a bad --distributed spec. Every phase prints its
+   seconds.
 
 ``python3 chip_smoke.py --fmad-ab`` runs phase 1 and then times the
 kernel built with and without nvcc's mul+add contraction, in turns, on
@@ -141,8 +167,12 @@ BIN = "01"
 GT_MODEL = "GTGTR4{1.5/2.5/0.8/1.2/3.0/1.0}+FE+G4{0.8}"
 GT = "ACGTMRSWYK"
 # --opt-model: the JAX bench's opt_model cell (bench.py:515-537), a generic
-# start on random data
+# start on random data, at (taxa, sites): cut from the cell's 256 taxa to
+# 64 to pay for phase 9 within the script's time (on the H100 the
+# 256-taxon run took 173.5 s of an 885.3-s script, and 128 taxa 134.6 s
+# in 500 L-BFGS steps; PERF.md)
 OPT_MODEL = "GTR+G"
+OPT_CELL = (64, 256)
 # small references at K = 20 (taxa, sites, queries, --no-heur queries):
 # smaller than the DNA one's, as the f64 CPU run they are held against
 # does 5x the rate-state lanes per site at RK = 80
@@ -169,6 +199,11 @@ MEMSAVE_REST_SLACK_MB = 1.0
 # what a --memsave run may add while placing beyond the resident run's
 # temporaries and its own staging rings
 MEMSAVE_PEAK_SLACK_MB = 16.0
+# phase 9b: the JAX bench's bigtree evolved cell (taxa, sites, reads, seed)
+# and its chunk; phase 9c: each rank's time limit
+BIGTREE_CELL = (2048, 256, 2048, 19)
+BIGTREE_CHUNK = 512
+RANK_TIMEOUT_S = 300
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -876,7 +911,7 @@ def explicit_gtr(model) -> str:
             f"+G{model.num_ratecats}{{{num(model.alpha)}}}")
 
 
-def small_opt_model(device, size=(64, 200, 256, 64), seed=5):
+def small_opt_model(device, size=(32, 200, 256, 64), seed=5):
     """Phase 7f: ``--opt-model`` on the small reference. The optimizer
     (``core.evaluate.optimize_model``, which the CLI calls) runs on the
     card in f32 and on the CPU in f64 from the generic OPT_MODEL start; the
@@ -954,7 +989,7 @@ class _WindowDone(Exception):
     been traced: the rest of the run is phase 7a's."""
 
 
-def profile_opt_window(paths, device, skip=20, active=5):
+def profile_opt_window(paths, device, skip=2, active=5):
     """Phase 7g: a ``--opt-model`` CLI run with torch.profiler on for
     ``active`` L-BFGS steps after the first ``skip``, stopped there: device
     time by kernel and the device's busy share over that window's wall
@@ -1072,26 +1107,29 @@ def kernel_entry(name, replaces, launches, r, **extra):
             "bound_by": r["bound_by"], "library_ms": None, **extra}
 
 
-def rest_of_cli(paths, n_queries, true_edges) -> dict:
-    """Phase 7: ``--opt-model`` (the JAX bench's opt_model shape, then 2048
-    reads placed on the optimized model through the kernel),
-    ``--dump-binary`` and ``-b`` (the headline), ``--raxml-blo`` (the
-    headline), binary and genotype models (the headline's shape), and the
-    small-reference gates of all five against the port's f64 CPU run."""
+def rest_of_cli(paths, n_queries, true_edges, lap) -> dict:
+    """Phase 7: ``--opt-model`` (the JAX bench's opt_model cell, cut to
+    OPT_CELL's 64 taxa, then 2048 reads placed on the optimized model
+    through the kernel), ``--dump-binary`` and ``-b`` (the headline),
+    ``--raxml-blo`` (the headline), binary and genotype models (the
+    headline's shape), and the small-reference gates of all five against
+    the port's f64 CPU run; ``lap(name)`` ends each part's seconds."""
     from epa_ng_tpu_torch.utils.synth import synth_dataset
     res = {}
-    # 7a: --opt-model at 256 taxa x 256 sites, then 2048 random reads
+    # 7a: --opt-model at OPT_CELL, then 2048 random reads
     t0 = time.perf_counter()
-    tree, ref, qry = synth_dataset(n_taxa=256, sites=256, n_queries=2048,
-                                   seed=37)
+    n_taxa, sites = OPT_CELL
+    tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=sites,
+                                   n_queries=2048, seed=37)
     opaths = write_data(tree, ref, qry, os.path.join(OUT, "data_opt"))
-    print(f"opt-model data: 256 taxa x 256 sites, 2048 random queries in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"opt-model data: {n_taxa} taxa x {sites} sites, 2048 random "
+          f"queries in {time.perf_counter() - t0:.2f} s", flush=True)
     st = main_path(opaths, 2048, None, "cuda", model=OPT_MODEL,
                    name="main_opt", extra=("--opt-model",))
     print("--opt-model main path: " + json.dumps(st), flush=True)
     check_main("--opt-model main path", st, "k4_launches")
     res["opt_model"] = st
+    lap("7a")
 
     # 7b: --dump-binary, then -b: the headline's store and reads
     outdir = os.path.join(OUT, "dump")
@@ -1105,6 +1143,7 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
     print("-b main path: " + json.dumps(st), flush=True)
     check_main("-b main path", st, "k4_launches")
     res["binary"] = st
+    lap("7b")
 
     # 7c: --raxml-blo on the headline
     st = main_path(paths, n_queries, true_edges, "cuda", name="main_raxml",
@@ -1112,6 +1151,7 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
     print("--raxml-blo main path: " + json.dumps(st), flush=True)
     check_twin("--raxml-blo main path", st)
     res["raxml_blo"] = st
+    lap("7c")
 
     # 7d-7e: binary and genotype models at the headline's shape
     for key, model, alphabet in (("bin", BIN_MODEL, BIN),
@@ -1127,6 +1167,7 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
         print(f"{model} main path: " + json.dumps(st), flush=True)
         check_twin(f"{model} main path", st)
         res[key] = st
+    lap("7d-7e")
 
     # 7f: the small-reference gates
     small = {
@@ -1148,10 +1189,12 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
               f"{key} small reference: kernel launches "
               f"{small[key]['launches']['launches']}, twin launches "
               f"{small[key]['twin_launches']}")
+    lap("7f")
     small["opt_model"] = small_opt_model("cuda")
     print("small reference --opt-model: " + json.dumps(small["opt_model"]),
           flush=True)
     res["small"] = small
+    lap("7f --opt-model")
 
     # 7g: where the device time of the --opt-model run goes, over a
     # window of its L-BFGS steps (a whole run holds millions of profiler
@@ -1160,6 +1203,7 @@ def rest_of_cli(paths, n_queries, true_edges) -> dict:
     res["opt_profile"] = profile_opt_window(opaths, "cuda")
     print("--opt-model profile: " + json.dumps(res["opt_profile"]),
           flush=True)
+    lap("7g")
     return res
 
 
@@ -1371,6 +1415,313 @@ def memsave_phase() -> dict:
     return res
 
 
+def place_msa(eng, qry, chunk):
+    """Phase 9b: place ``qry`` with ``eng`` through the CLI's pipeline
+    functions (encode, collapse duplicates, ``place_encoded_async``, then
+    ``finalize_chunk``; every chunk dispatched before the first is
+    finalized); returns (placements by name as in :func:`read_jplace`,
+    LWR-sorted rows, and the placing wall seconds)."""
+    from epa_ng_tpu_torch.core import chunk as chunk_mod
+    from epa_ng_tpu_torch.core.lwr import ChunkPlacements
+    from epa_ng_tpu_torch.io.fasta import MSA
+    t0 = time.perf_counter()
+    seqs = list(qry)
+    handles = []
+    for start in range(0, len(seqs), chunk):
+        sub = MSA()
+        for s in seqs[start:start + chunk]:
+            sub.append(s.header, s.sequence)
+        ec = chunk_mod.collapse(eng.encode_msa(sub))
+        handles.append(eng.place_encoded_async(ec, seq_id_offset=start))
+    out = {}
+    for h in handles:
+        res = eng.finalize_chunk(h)
+        pqs = res.to_pqueries() if isinstance(res, ChunkPlacements) else res
+        for pq in pqs:
+            order = sorted(range(len(pq.edge_nums)),
+                           key=lambda i: -pq.lwrs[i])
+            rows = [{"edge_num": int(pq.edge_nums[i]),
+                     "likelihood": float(pq.logls[i]),
+                     "like_weight_ratio": float(pq.lwrs[i])}
+                    for i in order]
+            for name in pq.headers:
+                out[name] = rows
+    return out, time.perf_counter() - t0
+
+
+def bit_for_bit(a, b) -> float:
+    """The share of queries whose placement rows are identical in runs
+    ``a`` and ``b``."""
+    return sum(a[q] == b[q] for q in a) / len(a)
+
+
+def mesh_gates(pl, name, other):
+    """Phase 9's agreement of two runs by name: top edge up to ties on >=
+    99% of the queries and the best logl within MEMSAVE_LOGL_ABS where
+    they share the top edge (phase 8's gates: a mesh run's state is built
+    on the CPU, so it rounds otherwise than a card-built one), with the
+    largest absolute best-logl difference and the share of queries that
+    are bit for bit."""
+    ag = memsave_gates(pl, [(name, other)], None)[f"{name}_vs_{other}"]
+    ag["bit_for_bit"] = bit_for_bit(pl[name], pl[other])
+    return ag
+
+
+def check_mesh_main(tag, st, mesh):
+    check(st["mesh"] == mesh, f"{tag}: ran on mesh {st['mesh']}")
+    check(st["blocked_launches"] > 0 and st["twin_launches"] == 0,
+          f"{tag}: {st['blocked_launches']} blocked launches, "
+          f"{st['twin_launches']} twin launches")
+
+
+def mesh_cli_phase(paths, ppaths, n_queries, data, pdata, plain,
+                   device="cuda") -> dict:
+    """Phase 9a: ``--mesh 1x1`` through the CLI on the headline data (the
+    JAX bench's mesh1x1 cell: the sharded step with the blocked kernel on
+    its one shard), and on the +I data, against phase 4's and 4b's
+    resident runs; q/s and its ratio to the resident run's ``plain``."""
+    res = {}
+    for key, p, d, model, base, pinv in (
+            ("mesh1x1", paths, data, MODEL, "main", False),
+            ("pinv_mesh1x1", ppaths, pdata, PINV_MODEL, "main_pinv", True)):
+        st = main_path(p, n_queries, d[3], device, model=model,
+                       name=f"main_{key}", extra=("--mesh", "1x1"))
+        check_main(key, st, "k4_launches", pinv=pinv)
+        check_mesh_main(key, st, "1x1")
+        pl = {key: read_jplace(os.path.join(OUT, f"main_{key}",
+                                            "epa_result.jplace")),
+              base: read_jplace(os.path.join(OUT, base,
+                                             "epa_result.jplace"))}
+        st["agreement"] = mesh_gates(pl, key, base)
+        st["ratio_vs_plain"] = st["qps"] / plain[base]["qps"]
+        print(f"--mesh 1x1 {key}: " + json.dumps(st), flush=True)
+        res[key] = st
+    return res
+
+
+def mesh_library_phase(device="cuda") -> dict:
+    """Phase 9b: ep > 1 on the one card through the library, on the JAX
+    bench's bigtree evolved data: the engine built on the CPU (as the CLI
+    builds it under --mesh) with ``make_mesh(1, 4, [cuda:0] * 4)`` and
+    ``make_mesh(2, 2, [cuda:0] * 4)`` attached, placing through the CLI's
+    pipeline functions, against the resident engine on the card; then one
+    forced exact redo on a few pairs through the mesh engine's
+    ``_thorough`` (the per-pair kernel shape on windows of the host store)
+    against the resident engine's."""
+    import numpy as np
+    import torch
+
+    from epa_ng_tpu_torch.core.engine import PlacementEngine
+    from epa_ng_tpu_torch.models import Model
+    from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
+    from epa_ng_tpu_torch.parallel.mesh import make_mesh
+    from epa_ng_tpu_torch.utils.options import Options
+    n_taxa, sites, n, seed = BIGTREE_CELL
+    t0 = time.perf_counter()
+    (tree, ref, qry, _), _ = make_data(n_taxa, sites, n, seed,
+                                       os.path.join(OUT, "data_bigtree"))
+    print(f"bigtree data: {n_taxa} taxa x {sites} sites, {n} evolved "
+          f"queries in {time.perf_counter() - t0:.2f} s", flush=True)
+    make = lambda dev: PlacementEngine(tree, ref, Model.from_string(MODEL),
+                                       Options(compute_dtype="f32"),
+                                       device=dev)
+    card = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    resident = make(card)
+    pl = {}
+    pl["resident"], wall = place_msa(resident, qry, BIGTREE_CHUNK)
+    res = {"resident": dict(qps=n / wall, placing_s=wall)}
+    print("bigtree resident (one card): " + json.dumps(res["resident"]),
+          flush=True)
+    chunks = -(-n // BIGTREE_CHUNK)
+    engines = {}
+    for dp, ep in ((1, 4), (2, 2)):
+        key = f"{dp}x{ep}"
+        t0 = time.perf_counter()
+        eng = make("cpu")
+        build_s = time.perf_counter() - t0
+        eng.attach_mesh(make_mesh(dp, ep, [card] * 4))
+        blo_newton.reset_counts()
+        pl[key], wall = place_msa(eng, qry, BIGTREE_CHUNK)
+        counts = blo_newton.counts()
+        st = dict(qps=n / wall, placing_s=wall, build_s=build_s,
+                  pad_edges=eng._sharded.pad,
+                  shard_bytes=eng._sharded.shard_nbytes(), **counts,
+                  **eng.newton_work.totals())
+        check(st["pad_edges"] == (-(2 * n_taxa - 3)) % ep,
+              f"mesh {key}: {st['pad_edges']} pad edges")
+        check(st["blocked_launches"] >= ep * chunks
+              and st["twin_launches"] == 0,
+              f"mesh {key}: {st['blocked_launches']} blocked launches for "
+              f"{ep} shards x {chunks} chunks, {st['twin_launches']} twin "
+              "launches")
+        st["agreement"] = mesh_gates(pl, key, "resident")
+        print(f"mesh {key} (bigtree, one card): " + json.dumps(st),
+              flush=True)
+        res[key] = st
+        engines[key] = eng
+    # the forced exact redo: 64 queries x their 4 best preplacement
+    # candidates through the mesh engine's _thorough (host windows, the
+    # per-pair kernel shape) and the resident engine's (blocked shape)
+    eng = engines["1x4"]
+    ec = resident.encode_msa(_head(qry, 64))
+    top = np.argsort(-resident.preplace(ec.codes, ec.ranges), axis=1,
+                     kind="stable")[:, :4]
+    pair_q = np.repeat(np.arange(64), 4).astype(np.int32)
+    pair_e = top.reshape(-1).astype(np.int32)
+    blo_newton.reset_counts()
+    got = eng._thorough(pair_e, pair_q, ec.codes, ec.ranges)
+    counts = blo_newton.counts()
+    want = resident._thorough(pair_e, pair_q, ec.codes, ec.ranges)
+    diff = float(np.max(np.abs(got[0] - want[0])))
+    res["exact_redo"] = dict(pairs=len(pair_e), max_abs_logl=diff,
+                             per_pair_launches=counts["per_pair_launches"],
+                             blocked_launches=counts["blocked_launches"])
+    print("mesh 1x4 exact redo: " + json.dumps(res["exact_redo"]),
+          flush=True)
+    check(counts["per_pair_launches"] > 0 and counts["blocked_launches"] == 0,
+          f"mesh exact redo launches {counts}")
+    check(diff <= MEMSAVE_LOGL_ABS, f"mesh exact redo: pair logl {diff} off "
+          f"the resident engine's (> {MEMSAVE_LOGL_ABS})")
+    return res
+
+
+def jplace_names(path) -> list:
+    with open(path) as f:
+        return [n for p in json.load(f)["placements"] for n in p["n"]]
+
+
+def two_ranks(paths, name, extra=(), device="cuda") -> dict:
+    """Phase 9c: ``python3 -m epa_ng_tpu_torch.cli ... --distributed
+    127.0.0.1:PORT,2,RANK`` as two processes on the one card (a gloo group
+    over localhost), each under a time limit; the merged jplace's names,
+    each rank's log and the pair's wall time."""
+    import socket
+    outdir = os.path.join(OUT, name)
+    os.makedirs(outdir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("EPA_NG_TPU_")}
+    env["PYTHONPATH"] = HERE
+    argv = ["--tree", paths[0], "--ref-msa", paths[1], "--query", paths[2],
+            "--model", MODEL, "--outdir", outdir, "--redo", "--chunk-size",
+            "1024", "--device", device, *extra]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "epa_ng_tpu_torch.cli", *argv,
+         "--distributed", f"127.0.0.1:{port},2,{rank}"],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0].decode())
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{name}: a rank ran past {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{name}: rank {rank} exited "
+              f"{p.returncode}: {out[-2000:]}")
+    logs = []
+    for rank in (0, 1):
+        with open(os.path.join(outdir, f"{rank}.epa_info.log")) as f:
+            logs.append(f.read())
+    left = [f for f in os.listdir(outdir) if ".shard" in f]
+    check(not left, f"{name}: left {left}")
+    return dict(wall_s=wall, logs=logs, names=jplace_names(
+        os.path.join(outdir, "epa_result.jplace")))
+
+
+def rank_launches(log) -> tuple:
+    """(blocked, per-pair, twin) from a rank's "Newton: ..." log line."""
+    line = [x for x in log.splitlines() if x.startswith("Newton: ")][-1]
+    words = line.split()
+    return int(words[1]), int(words[4]), int(words[8])
+
+
+def distributed_phase(paths, n_queries, device="cuda") -> dict:
+    """Phase 9c: two processes on the one card, even and then with
+    ``--adaptive-split`` (rates measured and gathered over the group);
+    the merged jplace holds every name once, in input order, with no
+    shard or sidecar left, and meets 9a's gates against phase 4's run;
+    every rank placed through the kernel, never the twin."""
+    main_pl = read_jplace(os.path.join(OUT, "main", "epa_result.jplace"))
+    want = [f"Q{i}" for i in range(n_queries)]
+    res = {}
+    for key, extra in (("even", ()), ("adaptive", ("--adaptive-split",))):
+        r = two_ranks(paths, f"dist_{key}", extra, device)
+        check(r["names"] == want, f"distributed {key}: the merged jplace "
+              f"holds {len(r['names'])} names, not the {n_queries} in "
+              "input order")
+        launches = [rank_launches(log) for log in r["logs"]]
+        check(all(b > 0 and t == 0 for b, _, t in launches),
+              f"distributed {key}: (blocked, per-pair, twin) per rank "
+              f"{launches}")
+        pl = {key: read_jplace(os.path.join(OUT, f"dist_{key}",
+                                            "epa_result.jplace")),
+              "main": main_pl}
+        st = dict(wall_s=r["wall_s"], launches=launches,
+                  agreement=mesh_gates(pl, key, "main"))
+        if extra:
+            shares = [[x.split("this rank: ")[1] for x in log.splitlines()
+                       if "this rank: " in x] for log in r["logs"]]
+            check(all(len(x) == 1 for x in shares),
+                  f"adaptive split: rank logs name {shares}")
+            got = [tuple(int(w) for w in x[0].replace(",", "").split()
+                         if w.isdigit()) for x in shares]
+            check(got[0][0] == 0 and got[1][0] == got[0][1]
+                  and got[0][1] + got[1][1] == n_queries,
+                  f"adaptive split: shards {got} do not cover "
+                  f"{n_queries} queries once")
+            st["shards"] = got
+        print(f"distributed {key}: " + json.dumps(st), flush=True)
+        res[key] = st
+    return res
+
+
+def refusals(paths) -> dict:
+    """Phase 9d: what the JAX CLI refuses, the port refuses, nonzero and
+    with its message: a mesh of more cards than the machine has, a dp
+    that is not a power of two, --mesh with --memsave, and a bad
+    --distributed spec."""
+    import torch
+
+    from epa_ng_tpu_torch import cli
+    n = torch.cuda.device_count()
+    big = "2x1" if n == 1 else f"1x{n + 1}"
+    cases = [(("--mesh", big), f"needs {2 if n == 1 else n + 1} local "
+              f"devices, have {n}"),
+             (("--mesh", "3x1"), "dp must be a power of two"),
+             (("--mesh", "1x1", "--memsave"),
+              "--mesh and --memsave are mutually exclusive"),
+             (("--distributed", "127.0.0.1:1,two,0"),
+              "bad --distributed spec")]
+    out = {}
+    for i, (flags, message) in enumerate(cases):
+        outdir = os.path.join(OUT, f"refuse{i}")
+        argv = ["--tree", paths[0], "--ref-msa", paths[1], "--query",
+                paths[2], "--model", MODEL, "--outdir", outdir, "--redo",
+                *flags]
+        try:
+            rc = cli.main(argv)
+            with open(os.path.join(outdir, "epa_info.log")) as f:
+                said = f.read()
+        except SystemExit as e:
+            rc, said = 1, str(e)
+        check(rc != 0 and message in said,
+              f"{' '.join(flags)}: exit {rc}, not refused with "
+              f"{message!r}: {said[-300:]}")
+        out[" ".join(flags)] = rc
+    print("refusals: " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=()) -> int:
     try:
         import torch
@@ -1389,6 +1740,15 @@ def main(argv=()) -> int:
         return 1
     try:
         t_start = time.perf_counter()
+        phase_s, lap = {}, [t_start]
+
+        def done(phase):
+            """Print and keep the seconds since the last phase ended."""
+            now = time.perf_counter()
+            phase_s[phase] = now - lap[0]
+            lap[0] = now
+            print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
+
         # phase 1: the card
         smi = card_line()
         name = torch.cuda.get_device_name(0)
@@ -1396,6 +1756,7 @@ def main(argv=()) -> int:
               f"nvidia-smi ({smi}) and torch ({name}) disagree")
         print(f"card: {smi} | torch: {name} | torch {torch.__version__} "
               f"cuda {torch.version.cuda}", flush=True)
+        done("1")
 
         if "--fmad-ab" in argv:
             data, _ = make_data(512, 512, 8192, 0, os.path.join(OUT, "data"))
@@ -1419,6 +1780,7 @@ def main(argv=()) -> int:
                  for s in ptxas_summary(log)]
         print(f"build: {build_s:.2f} s (both libraries); ptxas: "
               f"{json.dumps(ptxas)}", flush=True)
+        done("2")
 
         # data (set-up)
         t0 = time.perf_counter()
@@ -1444,6 +1806,7 @@ def main(argv=()) -> int:
         print(f"protein data: 256 taxa x 256 sites, {n_aa} evolved LG "
               f"queries and the +I copy; mixture 128 x 256, {n_mix} random "
               f"queries; in {time.perf_counter() - t0:.2f} s", flush=True)
+        done("data")
 
         # phases 3-3e: each instantiation vs its plain version, counters
         par = parity_phase("parity", data, MODEL)
@@ -1456,6 +1819,7 @@ def main(argv=()) -> int:
         gpar = parity_phase("R=16 parity", data, G16_MODEL)
         gppar = parity_phase("R=16 +I parity", pdata, G16_PINV_MODEL)
         agpar = parity_phase("K=20 R=16 parity", adata, AA_G16_MODEL)
+        done("3")
 
         # phases 4-4d: the main paths, each with its counts reset
         stats = main_path(paths, n_queries, data[3], "cuda")
@@ -1482,28 +1846,34 @@ def main(argv=()) -> int:
                             chunk=512)
         print("LG+G16 main path: " + json.dumps(agstats), flush=True)
         check_main("LG+G16 main path", agstats, "k20_launches", past8=True)
+        done("4")
 
         # phase 5: small-input references
         small = small_reference("cuda")
         print("small reference: " + json.dumps(small), flush=True)
+        done("5 GTR+G4")
         small_ic = small_reference("cuda", model=IC_MODEL,
                                    invariant_share=INVARIANT_SHARE,
                                    name="small_ic")
         print("small reference +IC: " + json.dumps(small_ic), flush=True)
+        done("5 +IC")
         small_aa = small_reference("cuda", model=AA_MODEL, name="small_aa",
                                    alphabet=AA, size=AA_SMALL)
         print("small reference LG+G4: " + json.dumps(small_aa), flush=True)
+        done("5 LG+G4")
         small_mix = small_reference("cuda", model=MIX_MODEL,
                                     name="small_mix", random_data=True,
                                     size=MIX_SMALL)
         print("small reference mixture: " + json.dumps(small_mix),
               flush=True)
+        done("5 mixture")
         small_aa_ic = small_reference("cuda", model=AA_IC_MODEL,
                                       invariant_share=INVARIANT_SHARE,
                                       name="small_aa_ic", alphabet=AA,
                                       freqs=lg_freqs(), size=AA_SMALL)
         print("small reference LG+IC+G4: " + json.dumps(small_aa_ic),
               flush=True)
+        done("5 LG+IC+G4")
         aa_ic = small_aa_ic["launches"]
         check(aa_ic["pinv_launches"] > 0
               and aa_ic["pinv_launches"] == aa_ic["k20_launches"]
@@ -1514,6 +1884,7 @@ def main(argv=()) -> int:
                                     name="small_r10")
         print("small reference +I+R10: " + json.dumps(small_r10),
               flush=True)
+        done("5 +I+R10")
         r10 = small_r10["launches"]
         check(r10["pinv_launches"] > 0
               and r10["pinv_launches"] == r10["past8_launches"]
@@ -1529,6 +1900,7 @@ def main(argv=()) -> int:
               and ag16["past8_launches"] == ag16["k20_launches"]
               == ag16["launches"],
               f"LG+G16 small reference: K=20 launches {ag16}")
+        done("5 LG+G16")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -1548,14 +1920,39 @@ def main(argv=()) -> int:
         agprof = profile_main(apaths, "cuda", model=AA_G16_MODEL,
                               name="profiled_aa_g16", chunk=512)
         print("LG+G16 profile: " + json.dumps(agprof), flush=True)
+        done("6")
 
         # phase 7: the rest of the one-card CLI, each path with its counts
         # reset just before and read just after
-        rest = rest_of_cli(paths, n_queries, data[3])
+        rest = rest_of_cli(paths, n_queries, data[3], done)
 
         # phase 8: --memsave, each tier with its counts reset just before
         # and read just after
         ms = memsave_phase()
+        done("8")
+
+        # phase 9: --mesh, a mesh of ep shards on the one card, two
+        # processes on the one card (--distributed, --adaptive-split), and
+        # the refusals; each path with its counts reset just before it
+        mesh_cli = mesh_cli_phase(paths, ppaths, n_queries, data, pdata,
+                                  {"main": stats, "main_pinv": pstats})
+        done("9a")
+        mesh_lib = mesh_library_phase()
+        done("9b")
+        mesh_dist = distributed_phase(paths, n_queries)
+        done("9c")
+        refusals(paths)
+        done("9d")
+        mesh_blocked = {
+            "mesh1x1": mesh_cli["mesh1x1"]["blocked_launches"],
+            **{f"bigtree_{k}": mesh_lib[k]["blocked_launches"]
+               for k in ("1x4", "2x2")}}
+        mesh_pp = {
+            "bigtree_exact_redo":
+                mesh_lib["exact_redo"]["per_pair_launches"],
+            **{k: mesh_cli[k]["per_pair_launches"] for k in mesh_cli},
+            **{f"bigtree_{k}": mesh_lib[k]["per_pair_launches"]
+               for k in ("1x4", "2x2")}}
         ms_tiers, ms_small = ms["tiers"], ms["small"]
         ms_launches = lambda shape, keys: {k: ms_tiers[k][shape]
                                            for k in keys}
@@ -1586,6 +1983,8 @@ def main(argv=()) -> int:
                     k: rest[k]["launches"] for k in ("opt_model", "binary")},
                 launches_memsave=ms_launches(
                     "blocked_launches", ("stream", "half", "cached")),
+                mesh_launches=sum(mesh_blocked.values()),
+                launches_mesh=mesh_blocked,
                 instantiation="GTR+G4: K = 4, R = 4", **team(par),
                 parity={**shapes(par, ("blocked", "blocked_widest_shared",
                                        "blocked_device_memory",
@@ -1594,6 +1993,9 @@ def main(argv=()) -> int:
                 "blo_newton_pinv (blocked)",
                 "epa_ng_tpu/ops/pallas_blo.py:174",
                 pstats["pinv_launches"], ppar["blocked"],
+                mesh_launches=mesh_cli["pinv_mesh1x1"]["pinv_launches"],
+                launches_note="mesh_launches: the +I headline under "
+                "--mesh 1x1 (phase 9a)",
                 instantiation="GTR+I{0.2}+G4: K = 4 with +I, R = 4",
                 **team(ppar),
                 parity={**shapes(ppar, ("blocked", "blocked_widest_shared",
@@ -1603,6 +2005,8 @@ def main(argv=()) -> int:
                 "blo_newton (per-pair)", "epa_ng_tpu/ops/pallas_blo.py:65",
                 sum(ms_pp.values()), par["per_pair"],
                 launches_memsave=ms_pp,
+                mesh_launches=sum(mesh_pp.values()),
+                launches_mesh=mesh_pp,
                 launches_small_reference=ms_small_pp(
                     ("stream", "quarter", "binary")),
                 launches_note="per-pair-shape launches over the GTR+G4 "
@@ -1677,7 +2081,9 @@ def main(argv=()) -> int:
             for f in files:
                 if f.endswith(".fasta"):
                     os.remove(os.path.join(root, f))
-        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"total: {time.perf_counter() - t_start:.1f} s; by phase: "
+              f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}",
+              flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

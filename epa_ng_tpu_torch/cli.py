@@ -3,9 +3,12 @@
 Flags, groups and mutual exclusions are the JAX package's (which mirror the
 reference's CLI11 app, src/main.cpp:96-556), plus ``--device`` (the card by
 default, ``cpu`` for the plain paths). ``--pallas auto|on|off`` keeps its
-name and selects the CUDA Newton kernel. Flags whose machinery this port
-does not have yet (``NOT_YET_PORTED``) exit with a "not yet ported"
-error.
+name and selects the CUDA Newton kernel. ``--mesh DPxEP`` shards this
+process' placement over its local cards (``--device cpu``: every shard on
+the CPU); ``--distributed`` joins a ``torch.distributed`` process group
+(gloo) in which each process places a contiguous shard of the query file
+and rank 0 merges the jplace fragments; ``--adaptive-split`` sizes those
+shards by each process' measured placement rate.
 
 Run as ``python -m epa_ng_tpu_torch.cli ...``.
 """
@@ -18,6 +21,7 @@ import os
 import shlex
 import sys
 import time
+from typing import Optional
 
 from epa_ng_tpu_torch import __version__
 from epa_ng_tpu_torch.utils.options import NumericalScaling, Options
@@ -28,12 +32,6 @@ log = logging.getLogger("epa_ng_tpu_torch")
 # seconds; the logged "Time spent placing" mirrors the reference's
 # integer-seconds format, src/main.cpp:545). Read by chip_smoke.py.
 LAST_RUN_STATS: dict = {}
-
-# (attribute, flag) of options whose machinery is not in this port yet
-NOT_YET_PORTED = (
-    ("mesh", "--mesh"), ("adaptive_split", "--adaptive-split"),
-    ("distributed", "--distributed"),
-)
 
 BANNER = r"""
     ______ ____   ___  ______ ____   __  __      ______ ____   __  __
@@ -178,15 +176,88 @@ def build_parser() -> argparse.ArgumentParser:
                            "if unsupported), off (always the torch "
                            "Newton).")
     comp.add_argument("--adaptive-split", action="store_true",
-                      help="Multi-host rate-proportional query split. (not "
-                           "yet ported)")
+                      help="Multi-process runs: shard the query file "
+                           "proportionally to each process' measured "
+                           "placement rate (a short synthetic "
+                           "calibration) instead of evenly — the "
+                           "runtime consumer of the reference's "
+                           "difficulty-proportional scheduler.")
     comp.add_argument("--mesh", default=None, metavar="DPxEP",
-                      help="Shard placement over a local device mesh. (not "
-                           "yet ported)")
+                      help="Shard this process' placement over a local "
+                           "device mesh, e.g. 4x2: queries data-parallel "
+                           "over DP cards, lookup/BLO tensors edge-"
+                           "sharded over EP cards (big-tree memory "
+                           "scaling; DP a power of two, DPxEP distinct "
+                           "local cards; with --device cpu every shard "
+                           "on the CPU).")
     comp.add_argument("--distributed", nargs="?", const="auto", default=None,
                       metavar="COORD,N,IDX",
-                      help="Multi-host initialization. (not yet ported)")
+                      help="Join a torch.distributed process group (gloo) "
+                           "for a multi-process run: no value = from the "
+                           "environment (torchrun's, or SLURM's or "
+                           "OpenMPI's rank and size with MASTER_ADDR and "
+                           "MASTER_PORT), or 'coordinator:port,num_procs,"
+                           "process_id' explicitly. Alternatively set "
+                           "EPA_NG_TPU_DISTRIBUTED. (The analog of the "
+                           "reference's MPI_Init, src/main.cpp:53.)")
     return p
+
+
+def _parse_mesh_spec(spec: str) -> tuple:
+    """'DPxEP' -> (dp, ep), both >= 1."""
+    try:
+        dp_s, ep_s = spec.lower().split("x", 1)
+        dp, ep = int(dp_s), int(ep_s)
+    except ValueError:
+        raise ValueError("want DPxEP, e.g. 4x2") from None
+    if dp < 1 or ep < 1:
+        raise ValueError("dp and ep must be >= 1")
+    return dp, ep
+
+
+# (rank, size) variables of the launchers that --distributed auto reads
+# besides torchrun's RANK / WORLD_SIZE
+_LAUNCHER_RANKS = (("SLURM_PROCID", "SLURM_NTASKS"),
+                   ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"))
+
+
+def maybe_init_distributed(spec: Optional[str]) -> bool:
+    """``torch.distributed.init_process_group("gloo", ...)`` from
+    --distributed or EPA_NG_TPU_DISTRIBUTED; returns whether it
+    initialized a group. Must run before logging (per-rank log files)."""
+    spec = spec or os.environ.get("EPA_NG_TPU_DISTRIBUTED") or None
+    if spec is None:
+        return False
+    import torch.distributed as dist
+    env = os.environ
+    if spec in ("auto", "1", "true"):
+        if "RANK" in env and "WORLD_SIZE" in env:   # torchrun
+            dist.init_process_group("gloo", init_method="env://")
+            return True
+        found = [(r, n) for r, n in _LAUNCHER_RANKS if r in env and n in env]
+        if not found or not ("MASTER_ADDR" in env and "MASTER_PORT" in env):
+            raise SystemExit(
+                "Error: --distributed auto found no torchrun environment "
+                "(RANK, WORLD_SIZE), nor SLURM's or OpenMPI's rank and size "
+                "with MASTER_ADDR and MASTER_PORT")
+        rank, size = found[0]
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{env['MASTER_ADDR']}:"
+                                f"{env['MASTER_PORT']}",
+            rank=int(env[rank]), world_size=int(env[size]))
+        return True
+    try:
+        coord, num, idx = spec.rsplit(",", 2)
+        num, idx = int(num), int(idx)
+        if not (coord and num >= 1 and 0 <= idx < num):
+            raise ValueError(spec)
+        dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                                world_size=num, rank=idx)
+    except ValueError as e:
+        raise SystemExit(
+            f"Error: bad --distributed spec {spec!r} "
+            "(want coordinator:port,num_procs,process_id)") from e
+    return True
 
 
 def options_from_args(args) -> Options:
@@ -279,13 +350,6 @@ def main(argv=None) -> int:
         build_parser().print_help()
         return 0
 
-    unported = [flag for attr, flag in NOT_YET_PORTED if getattr(args, attr)]
-    if unported:
-        print(f"Error: {', '.join(unported)} not yet ported to "
-              "epa_ng_tpu_torch (use the JAX package's epa-ng-tpu)",
-              file=sys.stderr)
-        return 2
-
     options = options_from_args(args)
     outdir = args.outdir
     os.makedirs(outdir, exist_ok=True)
@@ -309,10 +373,28 @@ def main(argv=None) -> int:
         split(ref, queries, outdir)
         return 0
 
+    # the multi-process topology must be known before logging (per-rank
+    # log files, rank-0-only stdout — reference: src/main.cpp:53-64,308-320)
+    owns_group = maybe_init_distributed(args.distributed)
+    try:
+        return _place(args, options, invocation, start_all)
+    finally:
+        if owns_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _place(args, options, invocation, start_all) -> int:
+    """The run after the conversion modes: build or load the reference
+    state, then place the query file (this process' shard of it)."""
     import torch
 
+    from epa_ng_tpu_torch.parallel.dist import process_info
+    outdir = args.outdir
+    pidx, pcount = process_info()
     from epa_ng_tpu_torch.utils.logging import setup_logging
-    setup_logging(outdir, verbose=args.verbose, redo=args.redo)
+    setup_logging(outdir, verbose=args.verbose, redo=args.redo,
+                  process_index=pidx, process_count=pcount)
     log.info(BANNER + f"(PyTorch/CUDA port, v{__version__})\n")
 
     # guard the RESULT file itself, not only the log (reference:
@@ -332,9 +414,40 @@ def main(argv=None) -> int:
     if args.compute_dtype is None:
         options.compute_dtype = _default_dtype(args.device)
 
-    from epa_ng_tpu_torch.core.engine import PlacementEngine
+    from epa_ng_tpu_torch.core.engine import (PlacementEngine,
+                                              _check_device_model)
     from epa_ng_tpu_torch.io import fasta as fio
     from epa_ng_tpu_torch.models import Model
+
+    # under --mesh the reference state is BUILT on the CPU (host RAM) in
+    # the run's dtype and only its ep shards reach the cards (attach_mesh):
+    # a tree whose tensors exceed one card must not run out of device
+    # memory during the build, before sharding could help
+    build_device = device
+    if args.mesh:
+        # every knowable incompatibility is checked BEFORE the (possibly
+        # minutes-long) reference-state build, not after it
+        try:
+            dp, ep = _parse_mesh_spec(args.mesh)
+            if dp & (dp - 1):
+                raise ValueError("dp must be a power of two")
+            if device.type == "cuda":
+                n_local = torch.cuda.device_count()
+                if dp * ep > n_local:
+                    raise ValueError(
+                        f"{dp}x{ep} needs {dp * ep} local devices, "
+                        f"have {n_local}")
+            if options.memsave:
+                raise ValueError("--mesh and --memsave are mutually "
+                                 "exclusive")
+        except ValueError as e:
+            log.error("Bad --mesh %r: %s", args.mesh, e)
+            return 1
+        # distinct local cards, or every shard on the CPU (the analog of
+        # XLA's virtual host devices)
+        mesh_devices = ([torch.device("cuda", i) for i in range(dp * ep)]
+                        if device.type == "cuda" else [device] * (dp * ep))
+        build_device = torch.device("cpu")
 
     if options.memsave:
         # the reference state is built on the CPU and kept in host RAM;
@@ -353,7 +466,8 @@ def main(argv=None) -> int:
         t_build = time.time()
         try:
             engine = load_binary(args.binary, options, engine_cls=engine_cls,
-                                 device=device)
+                                 device=build_device)
+            _check_device_model(device, engine.model, options.sliding_blo)
         except NotImplementedError as e:
             log.error("%s", e)
             return 2
@@ -425,7 +539,11 @@ def main(argv=None) -> int:
                              **{f"opt_model_{k}": v for k, v in opt.items()})
         t_build = time.time()
         try:
-            engine = engine_cls(tree, ref_msa, model, options, device=device)
+            # a model that the card does not take fails here, before a
+            # build on the CPU
+            _check_device_model(device, model, options.sliding_blo)
+            engine = engine_cls(tree, ref_msa, model, options,
+                                device=build_device)
         except NotImplementedError as e:
             log.error("%s", e)
             return 2
@@ -452,11 +570,52 @@ def main(argv=None) -> int:
                   "supported, please split them and specify using -s and -q.")
         return 1
 
+    if args.mesh:
+        # shard this process' placement over a local device mesh
+        from epa_ng_tpu_torch.parallel.mesh import make_mesh
+        try:
+            engine.attach_mesh(make_mesh(dp, ep, mesh_devices))
+        except ValueError as e:
+            log.error("Bad --mesh %r: %s", args.mesh, e)
+            return 1
+
     # --- placement loop (the analog of simple_mpi, src/core/place.cpp:173)
     from epa_ng_tpu_torch.core import chunk as chunk_mod
     from epa_ng_tpu_torch.core.pipeline import StreamingPipeline
     from epa_ng_tpu_torch.io.jplace import JplaceWriter
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
+    from epa_ng_tpu_torch.parallel import dist
+
+    # --adaptive-split: rate-proportional query shards (the runtime
+    # consumer of the scheduling math, parallel.schedule). Each process
+    # measures its own placement rate on a synthetic calibration chunk;
+    # the rates are gathered over the process group (or forced via
+    # EPA_NG_TPU_CALIBRATION_RATES="r0,r1,..." for tests and clusters of
+    # known skew) and every process derives the identical contiguous split
+    shard = None
+    if args.adaptive_split and pcount > 1:
+        from epa_ng_tpu_torch.parallel import schedule as sched
+        forced = os.environ.get("EPA_NG_TPU_CALIBRATION_RATES")
+        if forced:
+            rates = [float(x) for x in forced.split(",")]
+            if len(rates) != pcount:
+                log.error("EPA_NG_TPU_CALIBRATION_RATES has %d entries "
+                          "for %d processes", len(rates), pcount)
+                return 1
+        else:
+            rates = dist.all_gather_floats(engine.calibration_rate())
+            if rates is None or len(rates) != pcount:
+                # env-topology ranks cannot exchange rates; keep even
+                log.warning("--adaptive-split: no torch.distributed "
+                            "process group to exchange rates; keeping the "
+                            "even split (set EPA_NG_TPU_CALIBRATION_RATES "
+                            "to force)")
+                rates = [1.0] * pcount
+        shares = sched.proportional_shares(qry_info.sequences, rates)
+        shard = shares[pidx]
+        log.info("Adaptive split: rates %s -> shards %s (this rank: "
+                 "offset %d, %d queries)",
+                 [round(r, 1) for r in rates], shares, shard[0], shard[1])
 
     # the device memory that the built engine holds, and the peak while it
     # places (the allocator's counts, for the whole process)
@@ -465,15 +624,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(device)
         mem_at_place = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-    per_pair_at_place = blo_newton.counts()["per_pair_launches"]
+    at_place = blo_newton.counts()
     start_place = time.time()
     reader = fio.make_msa_reader(args.query, qry_info, options.premasking,
-                                 split=True)
+                                 split=True, process_index=pidx,
+                                 process_count=pcount, shard=shard)
     out_file = args.out_file
+    shard_name = out_file if pcount == 1 else f"{out_file}.shard{pidx}"
+    # --tmp: host-local files (e.g. node-local SSD) hold the shards
+    # (reference: src/main.cpp --tmp semantics)
+    shard_dir = options.tmp_dir if (pcount > 1 and options.tmp_dir) else outdir
     log.info("Output file: %s", os.path.join(outdir, out_file))
     tree_string = tree.numbered_newick(options.precision)
-    writer = JplaceWriter(outdir, out_file, tree_string, invocation,
-                          tree.mapper, precision=options.precision)
+    writer = JplaceWriter(shard_dir, shard_name, tree_string, invocation,
+                          tree.mapper, precision=options.precision,
+                          fragment=(pcount > 1))
 
     progress = {"done": 0, "reads": 0}
 
@@ -529,6 +694,13 @@ def main(argv=None) -> int:
               pipeline.read_timer.sum(), pipeline.compute_timer.sum(),
               pipeline.write_timer.sum())
 
+    if pcount > 1:
+        dist.barrier()
+        if pidx == 0:
+            dist.merge_jplace_shards(shard_dir, out_file, pcount,
+                                     tree_string, invocation,
+                                     final_dir=outdir)
+
     LAST_RUN_STATS.clear()
     LAST_RUN_STATS.update(
         build_s=build_s,
@@ -549,14 +721,23 @@ def main(argv=None) -> int:
         # the CUDA kernel's executed Newton work, from its counters, and
         # the calls of the torch twin (twin_launches)
         **engine.newton_work.totals(),
-        # the kernel's launches in the per-pair shape (--memsave's streamed
-        # windows), apart from the blocked ones
-        per_pair_launches=(blo_newton.counts()["per_pair_launches"]
-                           - per_pair_at_place),
+        # the kernel's launches while placing, by call shape: blocked (the
+        # fused step, on every shard of a mesh) and per-pair (--memsave's
+        # streamed windows, a mesh's exact redo)
+        **{k: blo_newton.counts()[k] - at_place[k]
+           for k in ("blocked_launches", "per_pair_launches")},
         **memory,
         # --memsave: the cached prefix, the pairs placed against it and on
         # streamed windows, and the bytes streamed to the device
-        **(engine.memsave_stats() if options.memsave else {}))
+        **(engine.memsave_stats() if options.memsave else {}),
+        # the run's place in a multi-process job and its local mesh
+        process_index=pidx, process_count=pcount,
+        mesh=f"{dp}x{ep}" if args.mesh else None,
+        adaptive_shard=None if shard is None else list(shard))
+    st = LAST_RUN_STATS
+    log.info("Newton: %d blocked and %d per-pair kernel launches, %d "
+             "torch-twin calls", st["blocked_launches"],
+             st["per_pair_launches"], st["twin_launches"])
     log.info("Time spent placing: %ds", int(time.time() - start_place))
     log.info("Elapsed Time: %ds", int(time.time() - start_all))
     return 0

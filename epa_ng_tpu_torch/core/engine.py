@@ -50,8 +50,9 @@ log = logging.getLogger("epa_ng_tpu_torch")
 
 class PlacementEngine:
     """Holds the reference tree state (edge CLV tensors, lookup tables) on
-    one device and places query chunks against it. ``device`` defaults to
-    the card; the tests pass ``"cpu"``."""
+    one device — or sharded over a mesh of devices (:meth:`attach_mesh`) —
+    and places query chunks against it. ``device`` defaults to the card;
+    the tests pass ``"cpu"``."""
 
     def __init__(self, tree: Tree, ref_msa: MSA, model: Model,
                  options: Optional[Options] = None, device="cuda"):
@@ -165,11 +166,69 @@ class PlacementEngine:
         self._finish_init()
         return self
 
+    def attach_mesh(self, mesh):
+        """Shard the reference state over a (dp, ep) mesh
+        (``parallel.mesh.make_mesh``; CLI: ``--mesh DPxEP``): queries ride
+        the ``dp`` axis, the lookup table and BLO store shard over ``ep``,
+        so trees whose tensors exceed one card's memory spread across
+        cards. The fused dispatch and the wide redo then run the sharded
+        step (``parallel.mesh._spmd_step_body``): every shard runs the
+        plain engine's functions — on the card the CUDA kernel, where
+        :meth:`_use_kernel` says so — on its local rows; the rare
+        exact-redo fallback gathers per-pair windows from HOST copies of
+        the BLO store (``core.memsave.host_window_thorough``), so no
+        full-size device copy survives. The engine then places on the
+        mesh's first device. The CLI builds the engine on the CPU under
+        --mesh, so only the shards reach the cards."""
+        from epa_ng_tpu_torch.core.memsave import (SLAB_PIPELINE_DEPTH,
+                                                   _StagingRing)
+        from epa_ng_tpu_torch.parallel.mesh import ShardedPlacement
+        if self.options.memsave:
+            raise ValueError("--mesh and --memsave are mutually exclusive")
+        dp = mesh.shape["dp"]
+        if dp & (dp - 1):
+            raise ValueError("mesh dp axis must be a power of two")
+        blo = self.blo
+        # --- the mesh host-RAM ceiling, stated and enforced: the process
+        # keeps a FULL copy of the BLO store in RAM for the rare exact-redo
+        # fallback (the shards on the devices only cover the fused path).
+        # ep-sharding divides the device footprint across the mesh but NOT
+        # the host footprint: tree size is capped at host RAM per process
+        # (the ceiling-breaker is --memsave, exclusive with --mesh).
+        # Checked here so the failure is a clear error at attach time, not
+        # an OOM kill mid-run.
+        need = sum(t.nbytes for t in blo)
+        avail = _host_available_bytes()
+        if avail is not None and need > 0.6 * avail:
+            raise RuntimeError(
+                f"--mesh keeps a full host-RAM copy of the reference "
+                f"state for the exact-redo fallback: need ~{need / 1e9:.1f}"
+                f" GB but only {avail / 1e9:.1f} GB host RAM is available. "
+                f"Tree size under --mesh is capped by host RAM per process; "
+                f"for larger trees use --memsave (single device).")
+        self._tU_h, self._tV_h, self._ls_h, self._lengths_h = (
+            t.cpu().contiguous() for t in blo)
+        self._sharded = ShardedPlacement(self, mesh)
+        # free the unsharded copies; everything on the devices now goes
+        # through self._sharded. The small per-chunk state (the constants,
+        # the query tips' tables) moves to the mesh's first device.
+        self._lookup_table = None
+        self._blo = None
+        self.device = mesh.grid[0][0]
+        self.consts = newton.EigConsts(*(t.to(self.device)
+                                         for t in self.consts))
+        self._char_clvs = self._char_clvs.to(self.device)
+        self.newton_work = blo_kernel.NewtonWork(self.device)
+        self._slab_ring = _StagingRing(self.device, SLAB_PIPELINE_DEPTH)
+        log.info("Attached %dx%d (dp x ep) device mesh", dp,
+                 mesh.shape["ep"])
+
     def _index(self, idx) -> torch.Tensor:
         return torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                device=self.device)
 
     def _finish_init(self, ref_logl: Optional[float] = None):
+        self._sharded = None
         self._escalations = 0  # chunks rescued by the wide-budget ladder
         # the Newton work the CUDA kernel executed, from its own counters
         # (zero where the torch twin ran instead), and the twin's calls
@@ -356,6 +415,38 @@ class PlacementEngine:
 
     # ------------------------------------------------------------------
 
+    def calibration_rate(self, n: int = 256, seed: int = 0) -> float:
+        """Measured placement throughput (queries/s) on a synthetic
+        read-like chunk — the per-process "difficulty" input of the
+        adaptive query sharding (parallel.schedule.proportional_shares;
+        the runtime successor of the reference's stage-difficulty
+        measurement, src/pipeline/Pipeline.hpp:84-125). Two passes; the
+        second is timed, so one-off costs (the kernel's first load, the
+        allocator's first requests) stay out of the rate."""
+        import time
+        log.info("Calibrating placement rate")
+        rng = np.random.default_rng(seed)
+        S = self.num_sites
+        chars = lookup_chars(self.model.num_states)
+        # single-state columns only (no gaps/ambiguity): peaked-enough
+        # posteriors that the chunk rides the production fused path
+        # instead of the saturation fallback
+        from epa_ng_tpu_torch.models.charmaps import state_mask_table
+        tbl = state_mask_table(self.model.num_states)
+        single = [i for i, ch in enumerate(chars)
+                  if bin(int(tbl[ord(ch)])).count("1") == 1]
+        codes = np.asarray(single, np.uint8)[
+            rng.integers(0, len(single), size=(n, S))]
+        span = max(8, S // 2)
+        begins = rng.integers(0, S - span + 1, size=n).astype(np.int32)
+        ranges = np.stack([begins, np.full(n, span, np.int32)], axis=1)
+        ec = EncodedChunk(headers=[[f"cal{i}"] for i in range(n)],
+                          codes=codes, ranges=ranges)
+        self.finalize_chunk(self.place_encoded_async(ec))
+        t0 = time.perf_counter()
+        self.finalize_chunk(self.place_encoded_async(ec))
+        return n / (time.perf_counter() - t0)
+
     def encode_msa(self, chunk: MSA) -> EncodedChunk:
         if chunk.num_sites and chunk.num_sites != self.num_sites and len(chunk):
             raise ValueError(
@@ -381,6 +472,9 @@ class PlacementEngine:
     def preplace(self, codes, ranges) -> np.ndarray:
         """[Q, E] preplacement scores."""
         as_i = lambda x: torch.as_tensor(np.asarray(x), device=self.device)
+        if self._sharded is not None:
+            return self._sharded.preplace(as_i(codes), as_i(ranges[:, 0]),
+                                          as_i(ranges[:, 1]))
         scores = lookup.preplace_scores(
             self.lookup_table, as_i(codes), as_i(ranges[:, 0]),
             as_i(ranges[:, 1]))
@@ -530,6 +624,10 @@ class PlacementEngine:
         while Qp < Qr:
             Qp *= 2
         Qp = max(Qr, min(Qp, opts.chunk_size))
+        if self._sharded is not None:
+            # dp-sharded queries need a divisible batch dimension
+            dp = self._sharded.mesh.shape["dp"]
+            Qp = -(-Qp // dp) * dp
         if Qp > Qr:
             pad = Qp - Qr
             codes = np.concatenate([codes, np.repeat(codes[-1:], pad, 0)])
@@ -540,20 +638,25 @@ class PlacementEngine:
         fcfg = (opts.acc_threshold, max(1, opts.filter_min),
                 opts.filter_max)
         use_kernel = self._use_kernel()
-        # the kernel's sumtable width covers the widest query span
+        # the kernel's sumtable width covers the widest query span (of
+        # every dp slice of the chunk too)
         Wk = blo_kernel.kernel_width(ranges[:, 1]) if use_kernel else None
-        blo = self.blo
         as_d = lambda x: torch.as_tensor(np.asarray(x), device=self.device)
-        out = placement_step(
-            self.consts, self.lookup_table, blo.tU, blo.tV, blo.ls,
-            blo.lengths, as_d(codes), as_d(ranges[:, 0]),
-            as_d(ranges[:, 1]), tQ, invq, opts.prescoring_threshold,
-            topk=topk, sliding=opts.sliding_blo,
-            site_width=W, packed=True, use_kernel=use_kernel,
-            block_width=Wk, filter_cfg=fcfg,
-            filter_threshold=opts.support_threshold,
-            heur_mode=heur_mode, has_pinv=self.model.pinv > 0,
-            work=self.newton_work)
+        batch = (as_d(codes), as_d(ranges[:, 0]), as_d(ranges[:, 1]), tQ,
+                 invq)
+        kw = dict(topk=topk, sliding=opts.sliding_blo, site_width=W,
+                  use_kernel=use_kernel, block_width=Wk, filter_cfg=fcfg,
+                  filter_threshold=opts.support_threshold,
+                  heur_mode=heur_mode, has_pinv=self.model.pinv > 0,
+                  work=self.newton_work)
+        if self._sharded is not None:
+            out = self._sharded.fused_step(*batch, **kw)
+        else:
+            blo = self.blo
+            out = placement_step(
+                self.consts, self.lookup_table, blo.tU, blo.tV, blo.ls,
+                blo.lengths, *batch, opts.prescoring_threshold, packed=True,
+                **kw)
         return {
             "ec": ec, "out": _HostCopy(out), "perm": perm, "Qr": Qr,
             "codes": codes, "ranges": ranges,
@@ -662,6 +765,8 @@ class PlacementEngine:
         Qp = 8
         while Qp < n_redo:
             Qp *= 2
+        if self._sharded is not None:
+            Qp = max(Qp, self._sharded.mesh.shape["dp"])
         idx = np.asarray(redo + [redo[-1]] * (Qp - n_redo))
         sub_r = ranges[idx]
         W2 = chunk_site_width(sub_r[:, 1], self.num_sites)
@@ -670,18 +775,22 @@ class PlacementEngine:
                 opts.filter_max)
         use_kernel = self._use_kernel()
         Wk2 = blo_kernel.kernel_width(sub_r[:, 1]) if use_kernel else None
-        blo = self.blo
         as_d = lambda x: torch.as_tensor(np.asarray(x), device=self.device)
-        out = placement_step(
-            self.consts, self.lookup_table, blo.tU, blo.tV, blo.ls,
-            blo.lengths, as_d(codes[idx]), as_d(sub_r[:, 0]),
-            as_d(sub_r[:, 1]), tQ[idx_t], invq[idx_t],
-            opts.prescoring_threshold,
-            topk=k2, sliding=opts.sliding_blo, site_width=W2, packed=True,
-            use_kernel=use_kernel, block_width=Wk2,
-            heur_mode=heur_mode,
-            filter_cfg=fcfg, filter_threshold=opts.support_threshold,
-            has_pinv=self.model.pinv > 0, work=self.newton_work)
+        batch = (as_d(codes[idx]), as_d(sub_r[:, 0]), as_d(sub_r[:, 1]),
+                 tQ[idx_t], invq[idx_t])
+        kw = dict(topk=k2, sliding=opts.sliding_blo, site_width=W2,
+                  use_kernel=use_kernel, block_width=Wk2,
+                  heur_mode=heur_mode, filter_cfg=fcfg,
+                  filter_threshold=opts.support_threshold,
+                  has_pinv=self.model.pinv > 0, work=self.newton_work)
+        if self._sharded is not None:
+            out = self._sharded.fused_step(*batch, **kw)
+        else:
+            blo = self.blo
+            out = placement_step(
+                self.consts, self.lookup_table, blo.tU, blo.tV, blo.ls,
+                blo.lengths, *batch, opts.prescoring_threshold, packed=True,
+                **kw)
         return self._redo_wide_finish(out, redo, n_redo, k2, codes, ranges,
                                       tQ, invq, perm, headers,
                                       seq_id_offset)
@@ -762,7 +871,16 @@ class PlacementEngine:
         batches take the kernel too. Otherwise pairs are grouped by their
         query's range width (rounded up to powers of two) and each bucket
         runs the twin on that window width — the analog of the reference's
-        premasking payoff on short reads."""
+        premasking payoff on short reads.
+
+        Under a mesh the BLO store lives sharded across devices: the
+        pairs' windows are gathered from the host copies instead
+        (``core.memsave.host_window_thorough``, shared with --memsave; on
+        the card the kernel's per-pair shape)."""
+        if self._sharded is not None:
+            from epa_ng_tpu_torch.core.memsave import host_window_thorough
+            return host_window_thorough(self, pair_e, pair_q, codes, ranges,
+                                        qt)
         opts = self.options
         S = self.num_sites
         P = len(pair_e)
@@ -892,7 +1010,7 @@ class _HostCopy:
             self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._buf.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._buf = t
 
@@ -900,6 +1018,18 @@ class _HostCopy:
         if self._event is not None:
             self._event.synchronize()
         return self._buf.numpy()
+
+
+def _host_available_bytes():
+    """Available host RAM (MemAvailable), or None when undeterminable."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
 
 
 def state_from_numpy(consts, blo, table, dtype=None, device="cuda"):

@@ -351,22 +351,6 @@ class OutOfCoreEngine(PlacementEngine):
             memsave_streamed_pairs=self.streamed_pairs,
             h2d_mb=sum(r.h2d_bytes for r in rings) / 1e6)
 
-    def _pair_bytes(self, W: int) -> int:
-        """Staged bytes of one pair's window of width W."""
-        return _itemsize(self._tU_h.dtype) * (2 * self._tU_h.shape[1] * W
-                                              + W + 1)
-
-    def _slab_pairs(self, W: int, blk: int) -> int:
-        """Pairs per staged slab at width W: ``blk``, or as many as fit
-        SLAB_BYTES."""
-        return max(1, min(blk, (SLAB_BYTES - 4 * _ALIGN)
-                          // self._pair_bytes(W)))
-
-    def _slab_specs(self, n: int, W: int):
-        RK, dt = self._tU_h.shape[1], self._tU_h.dtype
-        return [((n, RK, W), dt), ((n, RK, W), dt), ((n, W), dt),
-                ((n,), dt)]
-
     # the fused path needs device-resident stores: with a covering cache it
     # runs unchanged, otherwise every chunk takes the streamed exact path
     def place_encoded_async(self, ec, seq_id_offset: int = 0):
@@ -435,6 +419,18 @@ class OutOfCoreEngine(PlacementEngine):
         return tuple(out)
 
 
+def _slab_pairs(tU_h, W: int, blk: int) -> int:
+    """Pairs per staged slab of windows of width W of the host store
+    ``tU_h``: ``blk``, or as many as fit SLAB_BYTES (tu, tv, ls, length)."""
+    pair_bytes = _itemsize(tU_h.dtype) * (2 * tU_h.shape[1] * W + W + 1)
+    return max(1, min(blk, (SLAB_BYTES - 4 * _ALIGN) // pair_bytes))
+
+
+def _slab_specs(tU_h, n: int, W: int):
+    RK, dt = tU_h.shape[1], tU_h.dtype
+    return [((n, RK, W), dt), ((n, RK, W), dt), ((n, W), dt), ((n,), dt)]
+
+
 def _gather_windows(eng, pair_e, win_begin, W, tu, tv, ls, orig_len):
     """Host gathers of per-pair site windows of the host BLO store into the
     staging views ``tu``, ``tv`` [P, RK, W], ``ls`` [P, W] and
@@ -459,7 +455,9 @@ def host_window_thorough(eng, pair_e, pair_q, codes, ranges, qt=None):
     per-pair shape with its counters; otherwise the torch twin runs.
     Two-phase cap as in ``PlacementEngine._thorough``. ``eng`` carries the
     host store (``_tU_h``, ``_tV_h``, ``_ls_h``, ``_lengths_h``), the
-    staging ring and its device state."""
+    staging ring ``_slab_ring`` and its device state: an
+    :class:`OutOfCoreEngine`'s streamed misses, or the exact redo of an
+    engine with a mesh attached (``PlacementEngine.attach_mesh``)."""
     opts = eng.options
     S = eng.num_sites
     P = len(pair_e)
@@ -487,7 +485,7 @@ def host_window_thorough(eng, pair_e, pair_q, codes, ranges, qt=None):
         pe, pq = pair_e[sel], pair_q[sel]
         wb = np.minimum(begins[pq], S - W)
         slot, (tu, tv, lw, olen) = ring.put(
-            eng._slab_specs(len(sel), W),
+            _slab_specs(eng._tU_h, len(sel), W),
             lambda *views: _gather_windows(eng, pe, wb, W, *views))
         q_d, wb_d = as_d(pq).long(), as_d(wb).long()
         tq = tQ.unfold(2, W, 1)[q_d, :, wb_d]
@@ -524,7 +522,7 @@ def host_window_thorough(eng, pair_e, pair_q, codes, ranges, qt=None):
         for W in np.unique(widths[idx]):
             W = int(W)
             widx = order[widths[order] == W]
-            n = eng._slab_pairs(W, blk)
+            n = _slab_pairs(eng._tU_h, W, blk)
             for start in range(0, len(widx), n):
                 sel = widx[start:start + n]
                 pending.append((sel, slab(sel, W, cap)))

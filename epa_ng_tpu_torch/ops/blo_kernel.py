@@ -830,8 +830,11 @@ class _BloNewton:
         if not kernel_geometry(K, R, width, mixture, has_pinv)["t_shared"]:
             per_pair = _t_stride(K, RK, has_pinv) * width
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            ctas = self.team_geometry(K, R, width, mixture, has_pinv,
-                                      device_t=True)["ctas_per_sm"]
+            # the library sets its attributes and reads the occupancy on
+            # the current card: make it the one this launch runs on
+            with torch.cuda.device(dev):
+                ctas = self.team_geometry(K, R, width, mixture, has_pinv,
+                                          device_t=True)["ctas_per_sm"]
             blocks = max(1, min(P, sms * ctas,
                                 T_SCRATCH_BYTES // (per_pair * 4)))
             scratch = torch.empty(blocks * per_pair, dtype=torch.float32,
@@ -893,7 +896,8 @@ class NewtonWork:
         smooth, iters = counts
         step = torch.stack([live.sum(), smooth.sum(), iters.sum()])
         with self._lock:
-            self._totals += step.to(torch.int64)
+            # a mesh's shards may launch on other devices than the engine's
+            self._totals += step.to(self._totals.device, torch.int64)
 
     def totals(self) -> dict:
         """The totals so far (one host sync)."""

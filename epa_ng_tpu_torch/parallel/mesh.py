@@ -1,18 +1,38 @@
-"""The fused placement step (single-device half of the JAX package's
-``parallel/mesh.py``): preplace -> top-k select -> batched Newton -> LWR ->
-on-device output filter, one call per query chunk.
+"""The fused placement step and its sharded multi-device form (the JAX
+package's ``parallel/mesh.py``): preplace -> top-k select -> batched
+Newton -> LWR -> on-device output filter, one call per query chunk.
 
 On the card the Newton stage runs the CUDA kernel (``use_kernel``: f32
 sliding mode, DNA or protein, with or without +I, and protein matrix
 mixtures, whose query tips ``tQ`` carry RK per-category rows, through
 :func:`_newton_blocked_kernel`);
 f64, ``--pallas off`` and everything else take the torch Newton twin
-(ops.newton). The sharded multi-device step (``ShardedPlacement``,
-``_spmd_step_body``, ``make_mesh``) is not ported yet; it extends this
-module later.
+(ops.newton).
+
+Parallelization axes of the sharded step (:class:`ShardedPlacement`, the
+CLI's ``--mesh DPxEP``), replacing the reference's MPI data parallelism +
+OpenMP:
+
+- ``dp``: queries are data-parallel (the reference's rank-sharded query
+  streams, src/net/epa_mpi_util.cpp:10-30): each dp row of the mesh takes
+  a contiguous slice of the chunk, and the rows never communicate;
+- ``ep``: edges are model-parallel — the preplacement lookup table and the
+  BLO store are split over the ep shards of a row, so a tree whose state
+  exceeds one card's memory spreads over several.
+
+A mesh (:func:`make_mesh`) is a placement map, a dp x ep grid of
+``torch.device``: one process drives every shard, and the JAX package's
+collectives over ep (an all-gather of the candidate lists, sums of the
+softmax denominator and of the pair results) become copies to the dp
+row's lead device (its ep shard 0) and a ``cat``, or a sum in shard
+order, so the result is deterministic. A device may repeat in the grid:
+then one card holds several shards, and everything but the copies between
+distinct cards runs as it would across cards.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,24 +66,45 @@ def _select_topk(scores, threshold, topk: int, mode: str = "dynamic"):
       min(hits + max_strikes=6, max_pitches=40) (heuristics.hpp:101-117).
     """
     top_scores, top_edges = _topk(scores, topk)               # [Q,k]
+    denom = None
     if mode == "dynamic":
         ex = torch.exp(scores - top_scores[:, :1])
-        denom = torch.sum(ex, dim=1, keepdim=True)
-        lwr_pre = torch.exp(top_scores - top_scores[:, :1]) / denom
+        denom = torch.sum(ex, dim=1)
+    valid = _candidate_cut(top_scores, denom, threshold, topk, mode)
+    return top_edges.to(torch.int32), valid, top_scores
+
+
+def _candidate_cut(top_scores, denom, threshold, topk: int, mode: str):
+    """valid [Q,k]: the prefix of the descending ``top_scores`` [Q,k] that
+    the heuristic ``mode`` keeps (see :func:`_select_topk`); ``denom`` [Q]
+    is the dynamic rule's softmax denominator over every edge,
+    sum(exp(score - best))."""
+    if mode == "dynamic":
+        lwr_pre = (torch.exp(top_scores - top_scores[:, :1])
+                   / denom[:, None])
         prefix = torch.cumsum(lwr_pre, dim=1) - lwr_pre
-        valid = prefix < threshold                           # [Q,k]
-    elif mode == "fixed":
-        valid = torch.ones(top_scores.shape, dtype=torch.bool,
-                           device=scores.device)
-    elif mode == "baseball":
+        return prefix < threshold                            # [Q,k]
+    if mode == "fixed":
+        return torch.ones(top_scores.shape, dtype=torch.bool,
+                          device=top_scores.device)
+    if mode == "baseball":
         strike_box, max_strikes, max_pitches = 3.0, 6, 40
         hits = torch.sum(top_scores >= top_scores[:, :1] - strike_box,
                          dim=1, keepdim=True)
         total = torch.clamp(hits + max_strikes, max=max_pitches)
-        valid = torch.arange(topk, device=scores.device)[None, :] < total
-    else:
-        raise ValueError(f"unknown heuristic mode: {mode}")
-    return top_edges.to(torch.int32), valid, top_scores
+        return torch.arange(topk, device=top_scores.device)[None, :] < total
+    raise ValueError(f"unknown heuristic mode: {mode}")
+
+
+def preplace_select(table, codes, begins, spans, threshold, topk: int):
+    """Dispatch half of a two-phase fast path: preplacement scores + the
+    dynamic heuristic's candidate cut on the device; returns (top_edges
+    [Q, topk] int32, valid [Q, topk] bool), the candidate ids and mask that
+    a host-side pair compaction would read. The engine runs the fused
+    :func:`placement_step` instead; kept with the JAX package's."""
+    scores = _preplace_scores(table, codes, begins, spans)
+    top_edges, valid, _ = _select_topk(scores, threshold, topk)
+    return top_edges, valid
 
 
 def pair_windows(tU, tV, ls, lengths, tQ, invq, e_ids, q_ids, win_begin,
@@ -406,3 +447,341 @@ def chunk_site_width(spans, num_sites: int) -> int:
     while w < max_span:
         w *= 2
     return min(w, num_sites)
+
+
+# --------------------------------------------------------------------------
+# the multi-device half
+
+
+class DeviceMesh:
+    """A ``dp`` x ``ep`` grid of ``torch.device`` (``grid[i][j]`` holds ep
+    shard j of dp row i) and its ``shape`` {"dp": ..., "ep": ...}, the
+    JAX package's ``jax.sharding.Mesh`` axes."""
+
+    def __init__(self, grid):
+        self.grid = [[torch.device(d) for d in row] for row in grid]
+        self.shape = {"dp": len(self.grid), "ep": len(self.grid[0])}
+
+
+def make_mesh(n_dp: int, n_ep: int, devices=None) -> DeviceMesh:
+    """A dp x ep mesh over the first ``n_dp * n_ep`` of ``devices`` (by
+    default the local cards), row-major. A device may repeat: the list is
+    a placement map, and a repeat is how one card stands in for several
+    (the CLI alone asks for distinct cards)."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_dp * n_ep > len(devices):
+        raise ValueError(
+            f"mesh {n_dp}x{n_ep} needs {n_dp * n_ep} devices, "
+            f"have {len(devices)}")
+    return DeviceMesh([devices[i * n_ep:(i + 1) * n_ep]
+                       for i in range(n_dp)])
+
+
+def _newton_twin_windowed_pairs(consts, tU, tV, ls, lengths, tQ, invq,
+                                flat_e, q_ids0, live, begins, spans,
+                                site_width, sliding: bool, phase1: int,
+                                work=None):
+    """Torch-twin Newton stage over a flat [B] pair list with per-pair site
+    windows and two-phase convergence compaction (the JAX package's
+    ``_newton_xla_windowed_pairs``): the sharded step's Newton wherever
+    the kernel does not run (CPU, f64, ``--pallas off``, the twin routes).
+    Same contract as :func:`_newton_blocked_kernel`: ``flat_e`` indexes
+    THIS store, ``live`` marks the pairs to compute, and only slots with
+    computed > 0 carry usable results."""
+    dtype = tU.dtype
+    S = tU.shape[2]
+    B = flat_e.shape[0]
+    W = S if site_width is None else min(site_width, S)
+    win_begin = torch.clamp(begins, max=S - W)
+    args = pair_windows(tU, tV, ls, lengths, tQ, invq, flat_e, q_ids0,
+                        win_begin[q_ids0], (begins - win_begin)[q_ids0],
+                        spans[q_ids0], W)
+    max_sm = newton.SMOOTHINGS
+    two_phase = bool(phase1) and phase1 < max_sm and B >= 256
+    p1 = phase1 if two_phase else max_sm
+    logl, pendant, distal_rep, _, _, done = newton.blo_optimize_batch(
+        consts, *args, sliding=sliding, max_smoothings=p1)
+    if work is not None:
+        work.add_twin()
+    computed = live
+    if two_phase:
+        unconv = live & ~done
+        NB = min(B, max(B // 4, 128))
+        key = torch.where(unconv, 0, B) + torch.arange(B, device=tU.device)
+        idx2 = torch.argsort(key, stable=True)[:NB]
+        fits2 = unconv[idx2]
+        args2 = tuple(a[idx2] for a in args)
+        loglB, pendB, distB, _, _, _ = newton.blo_optimize_batch(
+            consts, *args2, sliding=sliding, max_smoothings=max_sm)
+        if work is not None:
+            work.add_twin()
+        put = lambda x, y: x.index_copy(0, idx2,
+                                        torch.where(fits2, y, x[idx2]))
+        logl, pendant = put(logl, loglB), put(pendant, pendB)
+        distal_rep = put(distal_rep, distB)
+        handled = torch.zeros(B, dtype=torch.bool, device=tU.device)
+        handled = handled.index_copy(0, idx2, fits2)
+        computed = live & (done | handled)
+    return logl, pendant, distal_rep, computed.to(dtype)
+
+
+class _Shard(NamedTuple):
+    """One ep shard's reference state on its device: the eigen constants
+    (replicated) and its slice of the lookup table and of the BLO store."""
+    device: torch.device
+    consts: newton.EigConsts
+    table: object           # [El, C, S] or a (resid, mean) pair
+    tU: torch.Tensor
+    tV: torch.Tensor
+    ls: torch.Tensor
+    lengths: torch.Tensor
+
+
+def _spmd_step_body(shards, queries, threshold, filter_threshold, *,
+                    topk: int, sliding: bool, site_width, use_kernel: bool,
+                    block_width, phase1: int, filter_cfg, heur_mode: str,
+                    packed: bool, has_pinv: bool = False, work=None):
+    """The sharded placement step for one dp row of the mesh: ``shards``
+    [n_ep] its ep shards (:class:`_Shard`), ``queries`` [n_ep] the row's
+    query slice (codes, begins, spans, tQ, invq) on each shard's device.
+    Every shard runs the single-device step's own functions on its local
+    edge rows — the CUDA kernel included — in the JAX package's order:
+
+    1. local preplacement scores and a local top-k, ids offset by j * El;
+    2. the ep all-gather of the (score, id) lists, then the global top-k;
+    3. the dynamic rule's softmax denominator, summed over the shards;
+    4. the owner-partitioned Newton: the shard holding an edge's rows
+       computes its pairs, on local edge ids; the others' lanes are dead;
+    5. the sum of logl, pendant, distal and computed over the shards,
+       each zeroed where its shard did not compute it;
+    6. the same epilogue as :func:`placement_step`.
+
+    The collectives are copies to the row's lead device (shard 0's) and a
+    ``cat`` or a sum in shard order. Nothing here reads a result back to
+    the host: the shards' work is all enqueued before the caller reads the
+    output (the twin Newton syncs the host as it does on one device).
+    Returns the epilogue's output on the lead device."""
+    n_ep = len(shards)
+    lead = shards[0].device
+    dtype = shards[0].tU.dtype
+    El = shards[0].tU.shape[0]        # local (ep-shard) edge rows
+    Q = queries[0][0].shape[0]        # local (dp-row) query rows
+
+    scores, ts_l, te_g = [], [], []
+    for j, (sh, (codes, begins, spans, _, _)) in enumerate(
+            zip(shards, queries)):
+        sc = _preplace_scores(sh.table, codes, begins, spans)  # [Q, El]
+        ts, te = _topk(sc, min(topk, El))
+        scores.append(sc)
+        ts_l.append(ts.to(lead))
+        te_g.append((te.to(torch.int32) + j * El).to(lead))
+    top_scores, sel = _topk(torch.cat(ts_l, dim=1), topk)
+    top_edges = torch.gather(torch.cat(te_g, dim=1), 1, sel)
+
+    denom = None
+    if heur_mode == "dynamic":
+        # the denominator sums over ALL edges: each shard its own rows
+        m = top_scores[:, :1]
+        for sc in scores:
+            part = torch.sum(torch.exp(sc - m.to(sc.device)), dim=1).to(lead)
+            denom = part if denom is None else denom + part
+    valid = _candidate_cut(top_scores, denom, threshold, topk, heur_mode)
+
+    flat_eg = top_edges.reshape(-1)
+    flat_valid = valid.reshape(-1)
+    parts = []
+    for j, (sh, (codes, begins, spans, tQ, invq)) in enumerate(
+            zip(shards, queries)):
+        dev = sh.device
+        eg = flat_eg.to(dev)
+        mine = torch.div(eg, El, rounding_mode="floor") == j
+        flat_e = torch.where(mine, eg - j * El, torch.zeros_like(eg))
+        live = flat_valid.to(dev) & mine
+        q_ids0 = torch.arange(Q, device=dev).repeat_interleave(topk)
+        if use_kernel and block_width is not None:
+            res = _newton_blocked_kernel(
+                sh.consts, sh.tU, sh.tV, sh.ls, sh.lengths, tQ, flat_e,
+                q_ids0, live, begins, spans, block_width,
+                halve_budget=(heur_mode == "dynamic"), phase1=phase1,
+                invq=invq, has_pinv=has_pinv, work=work)
+        else:
+            res = _newton_twin_windowed_pairs(
+                sh.consts, sh.tU, sh.tV, sh.ls, sh.lengths, tQ, invq,
+                flat_e, q_ids0, live, begins, spans, site_width, sliding,
+                phase1, work=work)
+        parts.append(res)
+
+    if n_ep > 1:
+        # every pair was computed on exactly one shard; non-computed slots
+        # hold garbage (dead kernel lanes), so zero them before the sum
+        total = None
+        for logl, pendant, distal, computed in parts:
+            ok = computed > 0
+            vals = [torch.where(ok, x, torch.zeros_like(x)).to(lead)
+                    for x in (logl, pendant, distal)]
+            vals.append(computed.to(lead))
+            total = vals if total is None else [
+                a + b for a, b in zip(total, vals)]
+        logl, pendant, distal, computed = total
+    else:
+        logl, pendant, distal, computed = parts[0]
+
+    sh2 = (Q, topk)
+    return _step_epilogue(
+        top_edges, logl.reshape(sh2), pendant.reshape(sh2),
+        distal.reshape(sh2), valid, dtype, packed,
+        computed=computed.reshape(sh2), filter_cfg=filter_cfg,
+        filter_threshold=filter_threshold,
+        dynamic_budget=(heur_mode == "dynamic"))
+
+
+class ShardedPlacement:
+    """Places an engine's reference state on a (dp, ep) mesh and runs the
+    fused placement step over it (:func:`_spmd_step_body` per dp row).
+
+    The edge axis is padded to a multiple of ep (the edge count 2T-3 is
+    odd): the pad rows of the table score -1e30 (a value that survives
+    sums over sites without overflowing to -inf), so top-k never picks
+    them, and the BLO store's pad rows repeat edge 0. Each ep slice of the
+    table and the store goes to its shard's device (once per distinct
+    device and slice, so a dp row on the same card shares it); the eigen
+    constants are replicated. ``pad`` is the pad edge count. Queries are
+    cut into dp contiguous slices, padded by the caller to a dp multiple
+    (:meth:`preplace` pads itself); outputs are on the mesh's first device."""
+
+    def __init__(self, engine, mesh: DeviceMesh, topk: int = 8):
+        self.engine = engine
+        self.mesh = mesh
+        self.topk = topk
+        self.num_edges = engine.num_edges
+        blo = engine.blo
+        n_ep = mesh.shape["ep"]
+        E = blo.tU.shape[0]
+        self.pad = pad = (-E) % n_ep
+        El = (E + pad) // n_ep
+
+        def pad_e(x, fill=None):
+            if pad == 0:
+                return x
+            if fill is None:   # repeat edge 0 (never selected: table pad)
+                tail = x[:1].expand((pad,) + tuple(x.shape[1:]))
+            else:
+                tail = torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                  dtype=x.dtype, device=x.device)
+            return torch.cat([x, tail], dim=0)
+
+        table = engine.lookup_table
+        if isinstance(table, tuple):
+            resid, mean = table
+            table = (pad_e(resid, 0.0), pad_e(mean, -1e30))
+        else:
+            table = pad_e(table, -1e30)
+        store = [pad_e(t) for t in (blo.tU, blo.tV, blo.ls, blo.lengths)]
+
+        def part(x, j):
+            return x[j * El:(j + 1) * El]
+
+        consts, shards = {}, {}
+        self.grid = []
+        for row in mesh.grid:
+            self.grid.append([])
+            for j, dev in enumerate(row):
+                if dev not in consts:
+                    consts[dev] = newton.EigConsts(
+                        *(t.to(dev) for t in engine.consts))
+                if (dev, j) not in shards:
+                    tbl = (tuple(part(t, j).to(dev).contiguous()
+                                 for t in table)
+                           if isinstance(table, tuple)
+                           else part(table, j).to(dev).contiguous())
+                    shards[dev, j] = _Shard(
+                        dev, consts[dev], tbl,
+                        *(part(t, j).to(dev).contiguous() for t in store))
+                self.grid[-1].append(shards[dev, j])
+        self._shards = list(shards.values())
+
+    def shard_nbytes(self) -> list:
+        """Per distinct (device, ep slice): the bytes its tensors hold."""
+        out = []
+        for sh in self._shards:
+            tbl = sh.table if isinstance(sh.table, tuple) else (sh.table,)
+            n = sum(t.nbytes for t in (*tbl, sh.tU, sh.tV, sh.ls,
+                                       sh.lengths))
+            out.append(dict(device=str(sh.device), edges=sh.tU.shape[0],
+                            bytes=n))
+        return out
+
+    def _rows(self, *xs):
+        """The dp rows' contiguous slices of the batch tensors ``xs``, each
+        on every shard device of its row: [dp][ep] tuples."""
+        dp = self.mesh.shape["dp"]
+        Q = xs[0].shape[0]
+        if Q % dp:
+            raise ValueError(f"batch {Q} is not a multiple of dp={dp}")
+        Qd = Q // dp
+        return [[tuple(x[i * Qd:(i + 1) * Qd].to(sh.device) for x in xs)
+                 for sh in row] for i, row in enumerate(self.grid)]
+
+    def _run(self, codes, begins, spans, tQ, invq, threshold, **kw):
+        out_dev = self.grid[0][0].device
+        outs = [_spmd_step_body(row, q, threshold, **kw)
+                for row, q in zip(self.grid,
+                                  self._rows(codes, begins, spans, tQ,
+                                             invq))]
+        if kw["packed"] or kw["filter_cfg"] is not None:
+            return torch.cat([o.to(out_dev) for o in outs], dim=1)
+        return tuple(torch.cat([o[f].to(out_dev) for o in outs], dim=0)
+                     for f in range(7))
+
+    def step(self, codes, begins, spans, tQ, invq):
+        """The plain sharded step (the unfiltered 7-tuple of
+        :func:`placement_step`) at this placement's ``topk``."""
+        opts = self.engine.options
+        return self._run(
+            codes, begins, spans, tQ, invq, opts.prescoring_threshold,
+            filter_threshold=0.0, topk=self.topk, sliding=opts.sliding_blo,
+            site_width=chunk_site_width(spans.cpu(),
+                                        self.grid[0][0].tU.shape[2]),
+            use_kernel=False, block_width=None, phase1=3, filter_cfg=None,
+            heur_mode="dynamic", packed=False)
+
+    def fused_step(self, codes, begins, spans, tQ, invq, *, topk: int,
+                   sliding: bool, site_width: int, filter_cfg,
+                   filter_threshold, heur_mode: str,
+                   use_kernel: bool = False, block_width=None,
+                   phase1: int = 3, has_pinv: bool = False, work=None):
+        """The engine's full fused dispatch (packed + on-device filter)
+        over the mesh — the sharded twin of the single-device call in
+        PlacementEngine._dispatch_chunk_fused, running the same kernels on
+        every shard."""
+        return self._run(
+            codes, begins, spans, tQ, invq,
+            self.engine.options.prescoring_threshold,
+            filter_threshold=filter_threshold, topk=topk, sliding=sliding,
+            site_width=site_width, use_kernel=use_kernel,
+            block_width=block_width, phase1=phase1, filter_cfg=filter_cfg,
+            heur_mode=heur_mode, packed=True, has_pinv=has_pinv, work=work)
+
+    def preplace(self, codes, begins, spans) -> np.ndarray:
+        """[Q, E] preplacement scores against the ep-sharded table (the
+        exact path's entry in mesh mode); pads the query batch to a dp
+        multiple and drops the pad rows and edges."""
+        from epa_ng_tpu_torch.core.engine import _HostCopy
+        Q = codes.shape[0]
+        dp = self.mesh.shape["dp"]
+        Qp = -(-Q // dp) * dp
+        if Qp != Q:
+            rep = lambda x: torch.cat(
+                [x, x[-1:].expand((Qp - Q,) + tuple(x.shape[1:]))])
+            codes, begins, spans = rep(codes), rep(begins), rep(spans)
+        pending = [[_HostCopy(_preplace_scores(sh.table, *q))
+                    for sh, q in zip(row, qs)]
+                   for row, qs in zip(self.grid,
+                                      self._rows(codes, begins, spans))]
+        scores = np.concatenate(
+            [np.concatenate([h.numpy() for h in row], axis=1)
+             for row in pending], axis=0)
+        return scores[:Q, :self.num_edges]

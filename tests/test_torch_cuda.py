@@ -821,3 +821,55 @@ def test_memsave_half_budget_on_card():
     assert eng.newton_work.totals()["twin_launches"] == 0
     close, agree = _agreement(want, got)
     assert close >= 0.99 and agree >= 0.99
+
+
+@pytest.mark.requires_cuda
+def test_mesh_on_one_card():
+    """Two ep shards on the one card (``make_mesh(1, 2, [cuda:0] * 2)``):
+    the engine is built on the CPU in f32, as the CLI builds it under
+    --mesh, and every shard places through the blocked kernel (at least
+    one launch a shard a chunk), never the twin; its exact redo runs the
+    per-pair shape on windows of the host store. Placements agree with the
+    resident engine on the card: top edge up to ties on >= 99% of queries
+    and the best logl within chip_smoke.MEMSAVE_LOGL_ABS where the top
+    edge is shared (the two builds round apart), and the exact redo's
+    pairs within it too."""
+    from chip_smoke import MEMSAVE_LOGL_ABS
+    from epa_ng_tpu_torch.parallel.mesh import make_mesh
+    dev = _card()
+    tree, ref, qry, _ = evolved_dataset(n_taxa=64, sites=200, n_queries=256,
+                                        seed=21, model_str=GTR)
+    make = lambda d: PlacementEngine(tree, ref, Model.from_string(GTR),
+                                     Options(compute_dtype="f32"), device=d)
+    res = make(dev)
+    want = res.place_chunk(qry)
+    eng = make("cpu")
+    eng.attach_mesh(make_mesh(1, 2, [dev] * 2))
+    assert eng.device == dev and eng._sharded.pad == 1
+    before = bk.blo_newton.counts()
+    got = eng.place_chunk(qry)
+    after = bk.blo_newton.counts()
+    assert after["blocked_launches"] - before["blocked_launches"] >= 2
+    assert eng.newton_work.totals()["twin_launches"] == 0
+    _, agree = _agreement(want, got)
+    assert agree >= 0.99
+    shared = [abs(y.logls[0] - x.logls[0]) for x, y in zip(want, got)
+              if x.edge_nums[0] == y.edge_nums[0]]
+    assert len(shared) >= 0.9 * len(want)
+    assert max(shared) <= MEMSAVE_LOGL_ABS
+
+    ec = eng.encode_msa(qry)
+    perm = np.argsort(ec.ranges[:, 0], kind="stable")
+    codes, ranges = ec.codes[perm], ec.ranges[perm]
+    before = bk.blo_newton.counts()["per_pair_launches"]
+    redo = [eng._redo_exact([0, 1, 2], codes, ranges,
+                            *e._query_tensors_codes(codes), perm,
+                            ec.headers, 0) for e in (eng, res)]
+    assert bk.blo_newton.counts()["per_pair_launches"] > before
+    for x, y in zip(*redo):
+        assert x.seq_id == y.seq_id
+        common = set(x.edge_nums.tolist()) & set(y.edge_nums.tolist())
+        assert common
+        lx = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
+        ly = dict(zip(y.edge_nums.tolist(), y.logls.tolist()))
+        assert max(abs(lx[e] - ly[e]) for e in common) <= MEMSAVE_LOGL_ABS

@@ -306,14 +306,28 @@ def test_from_precomputed_matches_jax_engine():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2x1"], ["--distributed"], ["--memsave", "--mesh", "2x1"],
-    ["--adaptive-split"]])
+    (["--mesh", "3x1"], "Bad --mesh '3x1': dp must be a power of two"),
+    (["--mesh", "bad"], "Bad --mesh 'bad': want DPxEP, e.g. 4x2"),
+    (["--memsave", "--mesh", "2x1"],
+     "--mesh and --memsave are mutually exclusive"),
+    (["--distributed", "127.0.0.1:1,two,0"],
+     "Error: bad --distributed spec '127.0.0.1:1,two,0' (want "
+     "coordinator:port,num_procs,process_id)"),
+    (["--mesh", "0x2"], "Bad --mesh '0x2': dp and ep must be >= 1")])
 def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
-    """The flags not yet ported exit 2 before anything else, --mesh
-    beside the ported --memsave too."""
-    rc = torch_main(["--outdir", str(tmp_path), "--device", "cpu", *flag])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """The multi-device and multi-process flags refuse what the JAX CLI
+    refuses, with its messages, before any state is built (no tree is given here: a run past the checks would fail on
+    that instead). A bad --distributed spec exits as the JAX CLI does,
+    through SystemExit."""
+    argv, message = flag
+    try:
+        rc = torch_main(["--outdir", str(tmp_path), "--device", "cpu",
+                         *argv])
+        said = capsys.readouterr().out
+    except SystemExit as e:
+        rc, said = 1, str(e)
+    assert rc == 1
+    assert message in said
 
 
 @pytest.mark.parametrize("model,refused", [
