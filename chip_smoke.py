@@ -28,7 +28,10 @@ Phases (any failure exits non-zero and prints no result line):
    LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns;
 3f-3h. the same at 16 rate categories: GTR+G16 and GTR+I{0.2}+G16 (the K = 4
    runtime-R instantiation) on the DNA and +I pairs, LG+G16{0.8} (the
-   K = 20 team's warps walking rates) on the protein pairs;
+   K = 20 cluster: two CTAs a pair, 8 rates each) on the protein pairs;
+3i-3k. the K = 20 cluster once more: LG+I{0.2}+G16{0.8} on the protein +I
+   pairs, and 16- and 32-component LG-derived mixtures (+G16{0.9},
+   +G32{0.9}: clusters of 2 and 4 CTAs) on the mixture pairs, 2048 each;
 4. the main path: ``epa_ng_tpu_torch.cli.main`` places 8192 evolved
    queries on a 512-taxon, 512-site tree under
    GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G4{0.6}, chunk 1024
@@ -42,14 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
    sites under four LG-derived components +G4{0.9}, chunk 512 (the JAX
    bench's ``mixture`` cell);
 4e-4f. the headline data under GTR+G16{0.6} and the protein data under
-   LG+G16{0.8}, each through its instantiation past 8 rates; every main
-   path must launch only its own instantiation, always with the counters,
-   and never the torch Newton;
+   LG+G16{0.8}, each through its instantiation past 8 rates;
+4g-4h. the protein +I data under LG+I{0.2}+G16{0.8} and the mixture data
+   under the 16-component mixture, through the cluster; every main path
+   must launch only its own instantiation, always with the counters, and
+   never the torch Newton;
 5. correctness on a small input: the card's f32 placements against the
    port's own f64 CPU run (plain paths) of the same files, under the main
    model, under +IC on data with invariant columns, under LG+G4, the
    mixture and LG+IC+G4 (all on seed 5), and past 8 rates under
-   GTR+I{0.2}+R10 on data with invariant columns and under LG+G16;
+   GTR+I{0.2}+R10 on data with invariant columns, under LG+G16 and under
+   the 32-component mixture (a cluster of 4 CTAs);
 6. the DNA, +I, protein, mixture, GTR+G16 and LG+G16 main paths once more
    under torch.profiler (device time by kernel, busy share);
 7. the rest of the one-card CLI, each path with the counts reset just
@@ -143,7 +149,7 @@ PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
 IC_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+IC"
             "+G4{0.6}")
 # more than 8 rate categories: the K = 4 runtime-R instantiation, the
-# K = 20 team's warps walking rates
+# K = 20 cluster
 G16_MODEL = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G16{0.6}"
 G16_PINV_MODEL = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}"
                   "+I{0.2}+G16{0.6}")
@@ -156,8 +162,16 @@ AA_MODEL = "LG+G4{0.8}"
 AA_PINV_MODEL = "LG+I{0.2}+G4{0.8}"
 AA_IC_MODEL = "LG+IC+G4{0.8}"
 AA_G16_MODEL = "LG+G16{0.8}"
+AA_PINV_G16_MODEL = "LG+I{0.2}+G16{0.8}"
 MIXTURE = "SMOKEMIX4M"   # four LG-derived components, gamma-coupled
 MIX_MODEL = MIXTURE + "+G4{0.9}"
+# mixtures past 8 components (the K = 20 cluster: 2 and 4 CTAs a pair),
+# register_mixture's recipe with 16 and 32 components
+MIXTURE16, MIXTURE32 = "SMOKEMIX16M", "SMOKEMIX32M"
+MIX16_MODEL = MIXTURE16 + "+G16{0.9}"
+MIX32_MODEL = MIXTURE32 + "+G32{0.9}"
+# parity pairs past 8 rates beyond the LG+G16 ones (4096)
+CLUSTER_PAIRS = 2048
 AA = "ARNDCQEGHILKMFPSTWYV"
 # the paths the JAX package runs on its XLA twin, never on Pallas: binary
 # (K = 2) and genotype (K = 10) models, over their alphabets in state order
@@ -178,6 +192,13 @@ OPT_CELL = (64, 256)
 # does 5x the rate-state lanes per site at RK = 80
 AA_SMALL = (48, 200, 128, 32)
 MIX_SMALL = (32, 160, 96, 24)
+# LG+G16's (RK = 320): at AA_SMALL it took 117-138 s of the script, the
+# most of any phase, on the H100 machines (PERF.md, PR 10); cut to keep
+# the script well inside its time limit on a slower host
+AA_G16_SMALL = (24, 160, 64, 16)
+# the 32-component mixture's (RK = 640: 8x the f64 work a site of the
+# four-component one's)
+MIX32_SMALL = (16, 96, 32, 8)
 # --memsave: the JAX bench's memsave cell (bench.py:473-512), (taxa,
 # sites, queries, seed), placed in chunks of MEMSAVE_CHUNK
 MEMSAVE_CELL = (2048, 256, 2048, 19)
@@ -238,8 +259,8 @@ def ptxas_summary(log: str) -> list:
     """nvcc's -Xptxas -v output as one entry per kernel instantiation:
     "R<rates> <shared|device> <plain|pinv>: <n> regs, <b> B spill" for the
     DNA ones (``blo_newton_dna_kernel``; R0 is the runtime-R one, past 8
-    rates), "K20 <single|mixture> <shared|device> <plain|pinv>[ walk]:
-    ..." for the K = 20 ones (rate count at run time; ``walk`` past 8
+    rates), "K20 <single|mixture> <shared|device> <plain|pinv>[ cluster]:
+    ..." for the K = 20 ones (rate count at run time; ``cluster`` past 8
     rates)."""
     import re
     out, cur = [], None
@@ -258,7 +279,7 @@ def ptxas_summary(log: str) -> list:
             kind = "mixture" if m.group(2) == "1" else "single"
             cur = (f"K{m.group(1)} {kind} {home(m.group(3))} "
                    f"{flavour(m.group(4))}"
-                   + (" walk" if m.group(5) == "1" else ""))
+                   + (" cluster" if m.group(5) == "1" else ""))
             spill = None
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -318,21 +339,22 @@ def make_data(n_taxa, sites, n_queries, seed, outdir, model=MODEL,
     return (tree, ref, qry, true_edges), paths
 
 
-def register_mixture():
-    """Register MIXTURE in the port's matrix-mixture table: four components
-    built as the JAX bench builds its mixture cell's (LG rates and
-    frequencies times exp(0.35 randn), RandomState(11)), gamma-coupled."""
+def register_mixture(n=4, name=MIXTURE):
+    """Register ``name`` in the port's matrix-mixture table: ``n``
+    components built as the JAX bench builds its mixture cell's four (LG
+    rates and frequencies times exp(0.35 randn), RandomState(11)),
+    gamma-coupled."""
     import numpy as np
 
     from epa_ng_tpu_torch.models import aa_matrices
     rng = np.random.RandomState(11)
     lg_r, lg_f = aa_matrices.MATRICES["LG"]
     comps = []
-    for _ in range(4):
+    for _ in range(n):
         r = lg_r * np.exp(0.35 * rng.randn(190))
         f = lg_f * np.exp(0.35 * rng.randn(20))
         comps.append((r, f / f.sum()))
-    aa_matrices.MIXTURES[MIXTURE] = (comps, "gamma")
+    aa_matrices.MIXTURES[name] = (comps, "gamma")
 
 
 def make_random_data(n_taxa, sites, n_queries, seed, outdir):
@@ -599,10 +621,13 @@ def kernel_parity(data, device, n_pairs=4096, reps=3, model=MODEL):
     if cuda:
         # the main path's launch geometry as the library reads it from the
         # runtime, against kernel_geometry's at the registers ptxas gave
+        # (the clusters the card holds at once are the runtime's alone)
         geo = bk.blo_newton.team_geometry(K, R, Wk, mix, pinv)
         pred = bk.kernel_geometry(K, R, Wk, mix, pinv, regs=geo["regs"])
-        check(geo == {k: pred[k] for k in geo},
+        check(all(geo[k] == pred[k] for k in geo if k in pred),
               f"K = {K} geometry {geo} is not the predicted {pred}")
+        check(geo["active_clusters"] >= 1,
+              f"K = {K}: the card holds no cluster of {geo['cluster']}")
         res["geometry"] = geo
 
     # --- per-pair call shape (pre-sliced windows)
@@ -1054,9 +1079,9 @@ def check_parity(tag, res):
               f"{r['distal_q90']}")
 
 
-def parity_phase(tag, data, model):
+def parity_phase(tag, data, model, n_pairs=4096):
     """One parity phase on the card, printed and checked."""
-    res = kernel_parity(data, "cuda", model=model)
+    res = kernel_parity(data, "cuda", n_pairs=n_pairs, model=model)
     for k, v in res.items():
         print(f"{tag} {k}: " + json.dumps(v), flush=True)
     check_parity(tag, res)
@@ -1066,10 +1091,11 @@ def parity_phase(tag, data, model):
     return res
 
 
-def check_main(tag, st, family, pinv=False, past8=False):
+def check_main(tag, st, family, pinv=False, past8=False, cluster=False):
     """A main path launched the kernel's ``family`` instantiation and only
     it, every launch with the counters (with +I iff ``pinv``, at more than
-    8 rate categories iff ``past8``), and never ran the torch Newton."""
+    8 rate categories iff ``past8``, on clusters iff ``cluster``), and
+    never ran the torch Newton."""
     check(st[family] > 0, f"{tag}: the {family} instantiation never ran")
     check(st[family] == st["launches"],
           f"{tag}: {st['launches'] - st[family]} launches of another "
@@ -1080,6 +1106,9 @@ def check_main(tag, st, family, pinv=False, past8=False):
     check(st["past8_launches"] == (st["launches"] if past8 else 0),
           f"{tag}: {st['past8_launches']} of {st['launches']} launches "
           "past 8 rate categories")
+    check(st["cluster_launches"] == (st["launches"] if cluster else 0),
+          f"{tag}: {st['cluster_launches']} of {st['launches']} launches "
+          "on clusters")
     check(st["counted_launches"] == st["launches"],
           f"{tag}: launched the kernel without its counters")
     check(st["twin_calls"] == 0,
@@ -1780,6 +1809,14 @@ def main(argv=()) -> int:
                  for s in ptxas_summary(log)]
         print(f"build: {build_s:.2f} s (both libraries); ptxas: "
               f"{json.dumps(ptxas)}", flush=True)
+        # the cluster's instantiations free of spills: {single, mixture} x
+        # home in the library without +I, single x home in the +I one (a
+        # library loaded from an earlier build prints no ptxas lines)
+        cluster = [p for p in ptxas if " cluster:" in p]
+        built = blo_newton.build_logs
+        check(len(cluster) == 4 * bool(built[False]) + 2 * bool(built[True])
+              and all(p.endswith(" 0 B spill") for p in cluster),
+              f"the cluster instantiations spill or are missing: {cluster}")
         done("2")
 
         # data (set-up)
@@ -1797,10 +1834,12 @@ def main(argv=()) -> int:
         adata, apaths = make_data(256, 256, n_aa, 0,
                                   os.path.join(OUT, "data_aa"),
                                   model=AA_MODEL, alphabet=AA)
-        apdata, _ = make_pinv_data(adata, 0,
-                                   os.path.join(OUT, "data_aa_pinv"),
-                                   lg_freqs(), AA)
+        apdata, appaths = make_pinv_data(adata, 0,
+                                         os.path.join(OUT, "data_aa_pinv"),
+                                         lg_freqs(), AA)
         register_mixture()
+        register_mixture(16, MIXTURE16)
+        register_mixture(32, MIXTURE32)
         mdata, mpaths = make_random_data(128, 256, n_mix, 13,
                                          os.path.join(OUT, "data_mix"))
         print(f"protein data: 256 taxa x 256 sites, {n_aa} evolved LG "
@@ -1820,6 +1859,15 @@ def main(argv=()) -> int:
         gppar = parity_phase("R=16 +I parity", pdata, G16_PINV_MODEL)
         agpar = parity_phase("K=20 R=16 parity", adata, AA_G16_MODEL)
         done("3")
+        # phases 3i-3k: the cluster with +I and for mixtures past 8
+        # components
+        agppar = parity_phase("K=20 R=16 +I parity", apdata,
+                              AA_PINV_G16_MODEL, CLUSTER_PAIRS)
+        m16par = parity_phase("mixture R=16 parity", mdata, MIX16_MODEL,
+                              CLUSTER_PAIRS)
+        m32par = parity_phase("mixture R=32 parity", mdata, MIX32_MODEL,
+                              CLUSTER_PAIRS)
+        done("3i")
 
         # phases 4-4d: the main paths, each with its counts reset
         stats = main_path(paths, n_queries, data[3], "cuda")
@@ -1845,8 +1893,23 @@ def main(argv=()) -> int:
                             model=AA_G16_MODEL, name="main_aa_g16",
                             chunk=512)
         print("LG+G16 main path: " + json.dumps(agstats), flush=True)
-        check_main("LG+G16 main path", agstats, "k20_launches", past8=True)
+        check_main("LG+G16 main path", agstats, "k20_launches", past8=True,
+                   cluster=True)
         done("4")
+        # phases 4g-4h: the cluster with +I and for a 16-component mixture
+        agpstats = main_path(appaths, n_aa, adata[3], "cuda",
+                             model=AA_PINV_G16_MODEL,
+                             name="main_aa_pinv_g16", chunk=512)
+        print("LG+I+G16 main path: " + json.dumps(agpstats), flush=True)
+        check_main("LG+I+G16 main path", agpstats, "k20_launches",
+                   pinv=True, past8=True, cluster=True)
+        m16stats = main_path(mpaths, n_mix, None, "cuda", model=MIX16_MODEL,
+                             name="main_mix16", chunk=512)
+        print("16-component mixture main path: " + json.dumps(m16stats),
+              flush=True)
+        check_main("16-component mixture main path", m16stats,
+                   "mixture_launches", past8=True, cluster=True)
+        done("4g")
 
         # phase 5: small-input references
         small = small_reference("cuda")
@@ -1892,7 +1955,7 @@ def main(argv=()) -> int:
               f"+I+R10 small reference: K=4 +I launches {r10}")
         small_aa_g16 = small_reference("cuda", model=AA_G16_MODEL,
                                        name="small_aa_g16", alphabet=AA,
-                                       size=AA_SMALL)
+                                       size=AA_G16_SMALL)
         print("small reference LG+G16: " + json.dumps(small_aa_g16),
               flush=True)
         ag16 = small_aa_g16["launches"]
@@ -1901,6 +1964,17 @@ def main(argv=()) -> int:
               == ag16["launches"],
               f"LG+G16 small reference: K=20 launches {ag16}")
         done("5 LG+G16")
+        small_mix32 = small_reference("cuda", model=MIX32_MODEL,
+                                      name="small_mix32", random_data=True,
+                                      size=MIX32_SMALL)
+        print("small reference 32-component mixture: "
+              + json.dumps(small_mix32), flush=True)
+        m32 = small_mix32["launches"]
+        check(m32["cluster_launches"] > 0
+              and m32["cluster_launches"] == m32["mixture_launches"]
+              == m32["launches"],
+              f"32-component mixture small reference: launches {m32}")
+        done("5 mixture R=32")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -1969,11 +2043,15 @@ def main(argv=()) -> int:
         def team(p):
             """A row's pairs off the f64 plain version and its launch
             geometry at the main path's width, as the library read it from
-            the runtime."""
+            the runtime: the CTAs a pair runs on and the clusters of them
+            the card holds at once (their CTAs against the card's SMs)."""
             g = p["geometry"]
             return dict(pairs_off_f64=p["blocked"]["pairs_off_f64"],
-                        threads_per_pair=g["threads"],
-                        ctas_per_sm=g["ctas_per_sm"],
+                        threads_per_cta=g["threads"],
+                        ctas_per_pair=g["cluster"],
+                        active_clusters=g["active_clusters"],
+                        ctas_held=g["active_clusters"] * g["cluster"],
+                        ctas_per_sm=g["ctas_per_sm"], t_shared=g["t_shared"],
                         shared_bytes=g["shared_bytes"], regs=g["regs"])
         kernels = [
             kernel_entry(
@@ -2072,10 +2150,35 @@ def main(argv=()) -> int:
                 parity={**shapes(gppar), **tol}),
             kernel_entry(
                 "blo_newton K=20 R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
-                agstats["past8_launches"], agpar["blocked"],
+                agstats["cluster_launches"], agpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
-                instantiation="LG+G16{0.8}: K = 20, warps walking rates, "
-                "R = 16", **team(agpar), parity={**shapes(agpar), **tol}),
+                instantiation="LG+G16{0.8}: K = 20, a cluster of 2 CTAs a "
+                "pair, 8 rates each, R = 16", **team(agpar),
+                parity={**shapes(agpar), **tol}),
+            kernel_entry(
+                "blo_newton_pinv K=20 R=16",
+                "epa_ng_tpu/ops/pallas_blo.py:174",
+                agpstats["cluster_launches"], agppar["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                instantiation="LG+I{0.2}+G16{0.8}: K = 20 with +I, a "
+                "cluster of 2 CTAs a pair, R = 16", **team(agppar),
+                parity={**shapes(agppar), **tol}),
+            kernel_entry(
+                "blo_newton mixture R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
+                m16stats["cluster_launches"], m16par["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation=f"{MIX16_MODEL}: K = 20, per-rate tables and "
+                "tip, a cluster of 2 CTAs a pair, R = 16", **team(m16par),
+                parity={**shapes(m16par), **tol}),
+            kernel_entry(
+                "blo_newton mixture R=32", "epa_ng_tpu/ops/pallas_blo.py:117",
+                m32["cluster_launches"], m32par["blocked"],
+                also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                instantiation=f"{MIX32_MODEL}: K = 20, per-rate tables and "
+                "tip, a cluster of 4 CTAs a pair, R = 32",
+                launches_note="launches of the card's 32-component mixture "
+                "small reference run (phase 5): it has no main path of its "
+                "own", **team(m32par), parity={**shapes(m32par), **tol}),
         ]
         for root, _, files in os.walk(OUT):
             for f in files:

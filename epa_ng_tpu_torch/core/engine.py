@@ -16,10 +16,10 @@ ragged candidate sets padded to fixed-size blocks.
 On cuda the port runs DNA and protein models, single-matrix with or
 without +I, and protein matrix mixtures (LG4M/LG4X), through the kernel
 at up to its rate cap (``ops.blo_kernel.MAX_RATES``: 312 categories at
-K = 4, 43 at K = 20, 27 for a mixture); binary and genotype models and
-``--raxml-blo`` through the torch twin, as the JAX package runs them on
-its XLA twin. More rate categories than the cap raise "not yet ported"
-there (they run on the CPU through the plain paths).
+K = 4, 64 at K = 20, a single matrix or a mixture); binary and genotype
+models, ``--raxml-blo`` and more rate categories than the cap through the
+torch twin, as the JAX package runs them on its XLA twin
+(``ops.blo_kernel.twin_route``).
 """
 
 from __future__ import annotations
@@ -386,11 +386,12 @@ class PlacementEngine:
         """Dispatch the Newton stage to the CUDA kernel? On a cuda device
         in f32, unless ``--pallas off`` or the model or mode is one that
         the JAX package runs on its XLA twin (``blo_kernel.twin_route``:
-        ``--raxml-blo``, states other than 4 and 20), which take the torch
-        twin on the card too. What else the kernel does not take
-        (``blo_kernel.blo_unsupported``: more rate categories than
-        ``blo_kernel.MAX_RATES``) raises "not yet ported" there rather than
-        running the twin. The twin also serves the CPU and f64."""
+        ``--raxml-blo``, states other than 4 and 20, more rate categories
+        than ``blo_kernel.MAX_RATES``), which take the torch twin on the
+        card too. What else the kernel does not take
+        (``blo_kernel.blo_unsupported``) raises "not yet ported" there
+        rather than running the twin. The twin also serves the CPU and
+        f64."""
         opt = self.options.pallas
         if opt == "off":
             return False
@@ -403,7 +404,8 @@ class PlacementEngine:
             if opt == "on":
                 raise ValueError(
                     "--pallas on requires sliding BLO and a DNA or protein "
-                    "model: the CUDA kernel takes no other")
+                    "model within the kernel's rate cap: the CUDA kernel "
+                    "takes no other")
             return False
         why = blo_kernel.blo_unsupported(self.consts,
                                          self.options.sliding_blo)
@@ -1056,18 +1058,20 @@ def _check_device_model(device: torch.device, model: Model,
     models with one substitution matrix, with or without +I (``+I{p}``,
     ``+IU{p}``, the empirical ``+IC``), and protein matrix mixtures
     (LG4M/LG4X), through the Newton kernel with up to
-    ``blo_kernel.MAX_RATES`` rate categories (312 at K = 4, 43 at K = 20,
-    27 for a mixture: every rate count whose kernel tables fit shared
-    memory); more rate categories raise rather than running the plain
-    paths there. Binary and genotype models, and non-sliding BLO
-    (``sliding=False``), run on the torch twin at any rate count, as the
-    JAX package runs them on its XLA twin."""
+    ``blo_kernel.MAX_RATES`` rate categories (312 at K = 4, 64 at K = 20,
+    a single matrix or a mixture). Binary and genotype models, non-sliding
+    BLO (``sliding=False``) and rate counts past the cap (which the JAX
+    package never gives its Pallas kernel, ``blo_kernel.twin_rates``) run
+    on the torch twin, as the JAX package runs them on its XLA twin. A
+    count past the cap that the JAX package gives Pallas would raise
+    rather than run the plain paths there; the caps leave none."""
     if (device.type != "cuda" or not sliding
             or model.num_states not in blo_kernel.K_STATES):
         return
     mixture = model.submodels is not None and model.num_ratecats > 1
     cap = blo_kernel.MAX_RATES[(model.num_states, mixture)]
-    if model.num_ratecats > cap:
+    if model.num_ratecats > cap and not blo_kernel.twin_rates(
+            model.num_states, model.num_ratecats, mixture):
         raise NotImplementedError(
             f"{model.num_ratecats} rate categories are not yet ported to the "
             f"GPU in epa_ng_tpu_torch (the Newton kernel takes 1..{cap} at "

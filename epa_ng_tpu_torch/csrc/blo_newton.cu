@@ -123,16 +123,9 @@
 //     neighbouring sites, so T rows (r*20+k)*width + w are free of bank
 //     conflicts; a rate gets 8/R warps (a tile of 256/R sites, in 32s), a
 //     thread the units w, w + tile, ... of its rate, and warps past R
-//     tiles idle. Past 8 rates (WALK, a build of its own) warp w walks
-//     the rates w, w + 8, ... over a tile of 32 sites, a chunk is one
-//     tile (R * 32 units), and the warp keeps one exponential row a rate
-//     it walks. At R = 16 the tables take 7,520 floats (30 KB; 19,520,
-//     78 KB, for a mixture) and T 1,280 B a site, so T fits in shared
-//     memory only up to 128 sites (96 for a mixture) and the protein main
-//     path's windows mostly take the device-memory home.
-//     __launch_bounds__(256, 1) leaves ptxas up to 255 registers, and
-//     the unrolled 20 x 20 back-transforms take 178-235 without spill,
-//     so the register file holds one team: 8 warps an SM.
+//     tiles idle. __launch_bounds__(256, 1) leaves ptxas up to 255
+//     registers, and the unrolled 20 x 20 back-transforms take 178-235
+//     without spill, so the register file holds one team: 8 warps an SM.
 //     512 threads (one unit each, 16 warps an SM at 128 registers) spilled
 //     40-140 B and ran 1.5% slower on protein pairs and 30% slower on
 //     mixture pairs (PERF.md);
@@ -164,6 +157,44 @@
 //     buffers, so one barrier per chunk and one per reduction suffice, and
 //     the whole team takes the same slide/snap/stop branches.
 //
+// Protein past 8 rate categories (R = 9-64: LG+G16, a 16- or
+// 32-component mixture): a thread-block cluster of C = ceil(R / 8) CTAs
+// per pair (CLUSTER). One CTA walking all R rates (two or more a warp)
+// held every rate's tables and T, 1,280 B a site at R = 16, so T fitted
+// shared memory only up to 128 sites (96 for a mixture): the protein
+// windows (up to 256 sites) took the device-memory scratch, every Newton
+// evaluation re-read the pair's T (up to 320 KB) through L2 and every
+// build wrote it, and each warp reloaded each rate's exponent lanes at
+// every evaluation. Hopper's clusters let C CTAs on neighbouring SMs read
+// each other's shared memory (DSMEM). So:
+//   * CTA c of a cluster owns the rates [8c, min(8c + 8, R)), one a warp,
+//     and is an R = 8 team otherwise (the same layout, tile and chunk): it
+//     loads only its slice's x_rk and wA rows (a mixture's A and piA rows;
+//     a single matrix's A and piA whole) and keeps only its rates' rows of
+//     T, so T at R = 16 is 640 B a site a CTA (644 with +I) and the
+//     protein windows keep it in shared memory (288 sites for LG, 256 for
+//     a mixture); past that, the device-memory scratch, one slice a CTA;
+//   * builds run on each CTA's own rates, with no traffic between CTAs;
+//   * a Newton evaluation or score: each warp writes its units' partials
+//     into its own CTA's double-buffered partials, a cluster barrier
+//     stands where the R <= 8 team's __syncthreads stands, and the first
+//     32 threads of EVERY CTA then add the sites t, t + 32, ... of the
+//     chunk, reading rate r's partial from CTA r / 8 (map_shared_rank) in
+//     order r = 0..R-1, then team_sum inside the CTA. Every CTA so holds
+//     the same d1 and d2 and takes the same branches, with no broadcast.
+//     The order is the walking build's (a 32-site tile, the rates in
+//     order, the butterfly, the fixed tree), so the plain version did not
+//     change. The partials' buffer parity runs on across evaluations (a
+//     remote reducer may still read the last chunk's buffer when the next
+//     evaluation begins), and a cluster barrier ends every pair, so no CTA
+//     takes the next pair, or exits, while another reads its partials;
+//   * persistent clusters: the grid is as many clusters as the card holds
+//     at once (cudaOccupancyMaxActiveClusters; a GPC's spare SMs idle at
+//     C >= 3), launched with cudaLaunchKernelEx and a runtime cluster
+//     dimension; cluster g walks pairs g, g + clusters, ..., and rank 0
+//     writes the outputs. A launch the runtime refuses returns its code;
+//     nothing falls back.
+
 // The guarded snap (``cancelled``): where a Newton solve would stop on, or
 // crawl from, an evaluation whose site likelihood has cancelled in the
 // eigenbasis sum (near the lower bound, in f32), it backs off or doubles
@@ -185,10 +216,11 @@
 // The source is compiled twice, with BLO_HAS_PINV 0 and 1, into two
 // libraries that build in parallel; each holds the 18 DNA instantiations
 // (rate count 1-8 and runtime x sumtable home) of its flavour, and the
-// K = 20 ones ({single, mixture} x home x {up to 8 rates, WALK} without
-// +I, single x home x the same with it; the JAX package takes no +I with
-// a mixture).
+// K = 20 ones ({single, mixture} x home x {up to 8 rates, cluster}
+// without +I, single x home x the same with it; the JAX package takes no
+// +I with a mixture).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -231,11 +263,13 @@ constexpr int TEAM_WARPS = TEAM / WARP;
 // the runtime-R one's lanes fill ceil(RK / 32) entries each
 static_assert(K * MAX_R <= WARP, "a warp's lanes fill its exponential row");
 // K = 20: (site, rate) units whose partial sums one barrier publishes: a
-// chunk of RED_UNITS / R sites (RED_UNITS / TEAM tiles) up to R = 8; past
-// TEAM_WARPS rates a chunk is one 32-site tile, R * 32 units
-// (red_units)
+// chunk of RED_UNITS / R sites (RED_UNITS / TEAM tiles; past TEAM_WARPS
+// rates a CTA's, of its TEAM_WARPS rates)
 constexpr int RED_UNITS = 512;
 static_assert(RED_UNITS % TEAM == 0, "a chunk holds whole tiles");
+// K = 20 past TEAM_WARPS rates: CTAs of a cluster, TEAM_WARPS rates each
+// (the most a portable cluster holds; ops/blo_kernel.py MAX_CLUSTER)
+constexpr int MAX_CLUSTER = 8;
 constexpr int SMEM_LIMIT_FLOATS = 232448 / 4;  // 227 KB a block may use
 
 __host__ __device__ inline int round32(int n) { return (n + 31) / 32 * 32; }
@@ -246,13 +280,13 @@ __host__ __device__ inline int dna_tab_floats(int R) {
   return n > TAB_FLOATS ? n : TAB_FLOATS;
 }
 
-// K = 20: rates a warp walks (w, w + 8, ...; one up to R = 8, where
-// TEAM_WARPS / R warps share a rate) and units a reduction buffer holds
-__host__ __device__ inline int rates_per_warp(int R) {
-  return R > TEAM_WARPS ? (R + TEAM_WARPS - 1) / TEAM_WARPS : 1;
+// K = 20: the CTAs of a pair's cluster (one up to TEAM_WARPS rates) and
+// the rate slots of each, which size its tables, partials and T
+__host__ __device__ inline int cluster_ctas(int R) {
+  return (R + TEAM_WARPS - 1) / TEAM_WARPS;
 }
-__host__ __device__ inline int red_units(int R) {
-  return R * WARP > RED_UNITS ? R * WARP : RED_UNITS;
+__host__ __device__ inline int slice_rates(int R) {
+  return R > TEAM_WARPS ? TEAM_WARPS : R;
 }
 
 __host__ __device__ inline int wide_tab_floats(int ns, int R, bool mix) {
@@ -269,14 +303,14 @@ __host__ __device__ constexpr int dna_t_stride(int rows) {
 }
 
 // Shared memory of a CTA, in floats, each region on a 32-float boundary
-// (ops/blo_kernel.py::kernel_geometry must match):
+// (ops/blo_kernel.py::kernel_geometry must match), for R rate slots (at
+// K = 20 past TEAM_WARPS rates a cluster CTA's slice_rates):
 //   tables   x_rk [RK], wA [RK][NS], A and piA ([NS][NS], a mixture's
 //            [RK][NS]) and at K = 4 x_rk^2 [RK]: dna_tab_floats at K = 4,
 //            wide_tab_floats at K = 20
 //   exps     two rows per warp, e^{x t}: at K = 4 the RK exponentials, 32
-//            floats or RK rounded up to 32; at K = 20 32 floats for each of
-//            the warp's rates (rates_per_warp)
-//   red      K = 20: [2][3][red_units] per-unit partial sums, one buffer
+//            floats or RK rounded up to 32; at K = 20 32 floats
+//   red      K = 20: [2][3][RED_UNITS] per-unit partial sums, one buffer
 //            per chunk parity
 //   slots    [2][2][warps] warp sums, one buffer per reduction parity; at
 //            K = 4 then [2] ints, the next pair's index, and max |x_rk|
@@ -289,10 +323,9 @@ struct TeamLayout {
     const int rk = R * ns;
     const int warps = ns == K ? DNA_WARPS : TEAM_WARPS;
     exps = ns == K ? dna_tab_floats(R) : wide_tab_floats(ns, R, mix);
-    erow = ns == K ? (rk > WARP ? round32(rk) : WARP)
-                   : WARP * rates_per_warp(R);
+    erow = ns == K && rk > WARP ? round32(rk) : WARP;
     red = exps + warps * 2 * erow;
-    slots = red + (ns == K ? 0 : 2 * 3 * red_units(R));
+    slots = red + (ns == K ? 0 : 2 * 3 * RED_UNITS);
     t = slots + round32(2 * 2 * warps + (ns == K ? 3 : 0));
     const int rows = rk + (pinv ? 1 : 0);
     t_end = t + round32((ns == K ? dna_t_stride(rows) : rows) * width);
@@ -869,76 +902,80 @@ blo_newton_dna_kernel(const float* __restrict__ tU,
 
 // ---------------------------------------------------------------------------
 // K = 20 (protein), one substitution matrix or a matrix mixture (LG4M/LG4X):
-// a team of TEAM threads per pair in one persistent CTA (the design is in
-// the header).
+// a team of TEAM threads per pair in one persistent CTA, or past TEAM_WARPS
+// rates one in each CTA of a cluster (the design is in the header).
 
-// WALK: more than TEAM_WARPS rates, warp w walking the rates w, w + 8, ...
-// (a build of its own, so the instantiations up to 8 rates keep their code)
-template <int NS, bool MIX, bool HAS_PINV, bool WALK>
+// the cluster's PTX (cooperative_groups' this_cluster(), sync() and
+// map_shared_rank() are these instructions): this CTA's rank in its
+// cluster, a barrier of every thread of every CTA (arrive releases, wait
+// acquires: their default semantics), and the generic address of *p in
+// the shared memory of the cluster's CTA ``rank`` (mapa)
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n\t"
+      "barrier.cluster.wait.aligned;" ::: "memory");
+}
+__device__ __forceinline__ const float* cluster_map(const float* p,
+                                                    int rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;"
+      : "=l"(out)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
+// CLUSTER: more than TEAM_WARPS rates, this CTA of the pair's cluster
+// holding the rates [r0, r0 + R) of ``rates`` (its own tables, rows of T
+// and partial sums; a build of its own, so the instantiations up to 8
+// rates keep their code)
+template <int NS, bool MIX, bool HAS_PINV, bool CLUSTER>
 struct TeamCtx {
   // the pair's window rows in device memory (row stride ld = S, site w at
-  // column begin + w)
+  // column begin + w; with CLUSTER from this CTA's first rate on)
   const float* wu;               // [RK] rows of tU
   const float* wv;               // [RK] rows of tV
   const float* wq;               // [NS|RK] rows of tQ
   int ld;
-  int R;
+  int R;                         // rates this CTA holds
+  int rates;                     // CLUSTER: the pair's rate count
+  int rank;                      // CLUSTER: this CTA's rank in the cluster
+  int rc;                        // units of a partial-sum array
   int span;
   int width;                     // T row stride (>= span)
   int tile;                      // sites per tile: 32 x the warps of a rate
   int chunk;                     // sites per barrier: RED_UNITS / TEAM tiles
-                                 // (one tile past TEAM_WARPS rates)
-  int units;                     // red_units: a reduction buffer's units
   int tid;
   int lane;
-  int rate;                      // this warp's first rate (>= R: idle)
+  int rate;                      // this warp's rate (>= R: idle)
   int site;                      // this thread's site within a tile
   int sbuf;                      // slot buffer of the next reduction
+  int pbuf;                      // CLUSTER: partials buffer of the next chunk
   float omp;                     // 1 - pinv (+I)
   float lam;                     // max |x_rk|, the fastest eigen rate
-  float* T;                      // [RK (+1)][width]
-  float* E0;                     // [rates_per_warp][32] shared, this warp's
-  float* E1;                     //   exponential rows, one per rate
-  float* red;                    // [2][3][units] shared
+  float* T;                      // [R * NS (+1)][width]
+  float* E0;                     // [32] shared, this warp's exponential
+  float* E1;                     //   rows
+  float* red;                    // [2][3][RED_UNITS] shared
   float* slots;                  // [2][2][TEAM_WARPS] shared
-  const float* xrk;              // [RK]         shared
+  const float* xrk;              // [RK]         shared (this CTA's rates)
   const float* wA;               // [RK][NS]     shared
   const float* A;                // [NS|RK][NS]  shared
   const float* piA;              // [NS|RK][NS]  shared
 
-  // f(r, j) for the warp's rates: its one rate (none if rate >= R), or
-  // with WALK the rates r = rate + j * TEAM_WARPS < R in order
-  template <class F>
-  __device__ __forceinline__ void for_my_rates(F f) const {
-    if constexpr (WALK) {
-      for (int r = rate, j = 0; r < R; r += TEAM_WARPS, ++j) f(r, j);
-    } else {
-      if (rate < R) f(rate, 0);
-    }
-  }
-
-  // units of a reduction buffer
-  __device__ __forceinline__ int red_stride() const {
-    if constexpr (WALK) {
-      return units;
-    } else {
-      return RED_UNITS;
-    }
-  }
-
-  // E[32 j + k] = exp(x_{r*NS+k} t) for the warp's j-th rate r (1 on the
-  // zero-eigenvalue lane, never read): the warp's own rows, lane k filling
-  // entry k of each. The first __syncwarp lets every lane finish reading
-  // the previous values, the second publishes the new ones; no block
-  // barrier.
+  // E[k] = exp(x_{rate*NS+k} t) (1 on the zero-eigenvalue lane, never
+  // read): the warp's own row, lane k filling entry k. The first __syncwarp
+  // lets every lane finish reading the previous values, the second
+  // publishes the new ones; no block barrier.
   __device__ void exps(float t, float* E) const {
     if (rate >= R) return;  // warp-uniform
     __syncwarp();
     if (lane < NS) {
-      for_my_rates([&](int r, int j) {
-        E[j * WARP + lane] =
-            (lane == NS - 1) ? 1.0f : expf(xrk[r * NS + lane] * t);
-      });
+      E[lane] = (lane == NS - 1) ? 1.0f : expf(xrk[rate * NS + lane] * t);
     }
     __syncwarp();
   }
@@ -955,17 +992,64 @@ struct TeamCtx {
     }
   }
 
+  // publishes a chunk's partial sums: to the CTA, or with CLUSTER to every
+  // CTA of the cluster
+  __device__ __forceinline__ static void publish() {
+    if constexpr (CLUSTER) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+  }
+
+  // unit u's sums over the rates, r = 0..R-1 in order, of the N partial
+  // arrays at ``part`` (stride rc): with CLUSTER over every CTA's rates,
+  // rate r's partial read from CTA r / TEAM_WARPS (DSMEM; each CTA's
+  // TEAM_WARPS loaded at once, then added in order)
+  template <int N>
+  __device__ __forceinline__ void rate_sums(const float* part, int u,
+                                            float (&f)[N]) const {
+    if constexpr (CLUSTER) {
+      for (int c = 0, r = 0; r < rates; ++c) {
+        const float* p = c == rank ? part : cluster_map(part, c);
+        float v[N][TEAM_WARPS];
+#pragma unroll
+        for (int j = 0; j < TEAM_WARPS; ++j) {
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+            v[n][j] = r + j < rates ? p[n * rc + j * chunk + u] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < TEAM_WARPS; ++j, ++r) {
+          if (r < rates) {
+#pragma unroll
+            for (int n = 0; n < N; ++n) {
+              f[n] = r == 0 ? v[n][j] : f[n] + v[n][j];
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) f[n] = part[n * rc + u];
+      for (int r = 1; r < R; ++r) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) f[n] += part[n * rc + r * chunk + u];
+      }
+    }
+  }
+
   // T1 (T2 false): contract(wA-bt(tU e^{x la}), A-bt(tV e^{x lb})) * tQ
   // T2 (T2 true):  contract(wA-bt(tU e^{x la}), A-bt(tQ e^{x lb})) * tV
-  // Each thread builds the units (site, each of its warp's rates) w =
-  // site, site + tile, ...; the barrier at the end publishes T.
+  // Each thread builds the units (its warp's rate, sites site, site +
+  // tile, ...); the barrier at the end publishes T (each CTA's own).
   template <bool T2>
   __device__ void build(float la, float lb) {
     exps(la, E0);
     exps(lb, E1);
-    for_my_rates([&](int r, int jr) {
-      const float* e0 = E0 + jr * WARP;
-      const float* e1 = E1 + jr * WARP;
+    if (rate < R) {
+      const int r = rate;
       for (int w = site; w < span; w += tile) {
         // a barrier for the compiler only: it keeps ptxas from hoisting
         // a single matrix's 2 K^2 loop-invariant coefficients out of the
@@ -981,8 +1065,8 @@ struct TeamCtx {
           u[k] = wu[j * ld + w];
           v[k] = T2 ? wq[(MIX ? j : k) * ld + w] : wv[j * ld + w];
           if (k != NS - 1) {
-            u[k] *= e0[k];
-            v[k] *= e1[k];
+            u[k] *= E0[k];
+            v[k] *= E1[k];
           }
         }
 #pragma unroll
@@ -1007,7 +1091,7 @@ struct TeamCtx {
           T[j * width + w] = acc[k] * o;
         }
       }
-    });
+    }
     __syncthreads();
   }
 
@@ -1020,35 +1104,37 @@ struct TeamCtx {
   // chunk, each unit's sum over its 20 eigen lanes (k order) into red, a
   // barrier, then thread t adds the rates of its sites t, t + tile, ... in
   // order r = 0..R-1. The partials alternate between two buffers, so one
-  // barrier per chunk suffices.
+  // barrier per chunk suffices; with CLUSTER the alternation runs on
+  // across evaluations, since another CTA's reducers may still read this
+  // CTA's last chunk when the next evaluation begins.
   __device__ float score(float lq) {
     exps(lq, E0);
     float acc[1] = {0.0f};
-    int buf = 0;
+    int buf = CLUSTER ? pbuf : 0;
     for (int base = 0; base < span; base += chunk, buf ^= 1) {
-      float* part = red + buf * 3 * red_stride();
+      float* part = red + buf * 3 * RED_UNITS;
       const int end = min(base + chunk, span);
-      for_my_rates([&](int r, int jr) {
-        const float* e = E0 + jr * WARP;
+      if (rate < R) {
         for (int w = base + site; w < end; w += tile) {
           float f = 0.0f;
 #pragma unroll
           for (int k = 0; k < NS; ++k) {
-            const float t = T[(r * NS + k) * width + w];
-            f += (k == NS - 1) ? t : t * e[k];
+            const float t = T[(rate * NS + k) * width + w];
+            f += (k == NS - 1) ? t : t * E0[k];
           }
-          part[r * chunk + w - base] = f;
+          part[rate * chunk + w - base] = f;
         }
-      });
-      __syncthreads();
+      }
+      publish();
       if (tid < tile) {
         for (int ws = base + tid; ws < end; ws += tile) {
-          float f = part[ws - base];
-          for (int r = 1; r < R; ++r) f += part[r * chunk + ws - base];
-          acc[0] += logf(fmaxf(site_g(f, ws), FLT_MIN));
+          float f[1];
+          rate_sums(part, ws - base, f);
+          acc[0] += logf(fmaxf(site_g(f[0], ws), FLT_MIN));
         }
       }
     }
+    if constexpr (CLUSTER) pbuf = buf;
     team_sum<TEAM_WARPS>(acc, slots, sbuf, tid);
     return acc[0];
   }
@@ -1062,61 +1148,51 @@ struct TeamCtx {
     float x_hi = x;      // the last point evaluated soundly with d1 < 0
     float slid = 0.0f;
     bool done = false;
-    const int rc = R * chunk;
-    // the rate's exponent lanes, in registers for the whole solve (with
-    // WALK each rate's in turn)
+    // the rate's exponent lanes, in registers for the whole solve
     float xs[NS - 1];
 #pragma unroll
     for (int k = 0; k < NS - 1; ++k) {
       xs[k] = rate < R ? xrk[rate * NS + k] : 0.0f;
     }
+    int buf = CLUSTER ? pbuf : 0;
     for (int it = 0; it < MAX_ITERS && !done; ++it) {
       ++iters;
       exps(x, E0);
       float d[2] = {0.0f, 0.0f};
-      int buf = 0;
+      if constexpr (!CLUSTER) buf = 0;
       for (int base = 0; base < span; base += chunk, buf ^= 1) {
-        float* part = red + buf * 3 * red_stride();
+        float* part = red + buf * 3 * RED_UNITS;
         const int end = min(base + chunk, span);
-        for_my_rates([&](int r, int jr) {
-          const float* e = E0 + jr * WARP;
-          if constexpr (WALK) {
-#pragma unroll
-            for (int k = 0; k < NS - 1; ++k) xs[k] = xrk[r * NS + k];
-          }
+        if (rate < R) {
           for (int w = base + site; w < end; w += tile) {
             float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
-              const float t = T[(r * NS + k) * width + w];
+              const float t = T[(rate * NS + k) * width + w];
               if (k == NS - 1) {
                 f0 += t;  // zero-eigenvalue lane: x_j == 0 exactly
               } else {
                 const float xj = xs[k];
-                const float tE = t * e[k];
+                const float tE = t * E0[k];
                 f0 += tE;
                 f1 += tE * xj;
                 f2 += tE * (xj * xj);
               }
             }
-            const int u = r * chunk + w - base;
+            const int u = rate * chunk + w - base;
             part[u] = f0;
             part[rc + u] = f1;
             part[2 * rc + u] = f2;
           }
-        });
-        __syncthreads();
+        }
+        publish();
         if (tid < tile) {
           for (int ws = base + tid; ws < end; ws += tile) {
-            const int u = ws - base;
-            float f0 = part[u], f1 = part[rc + u], f2 = part[2 * rc + u];
-            for (int r = 1; r < R; ++r) {
-              f0 += part[r * chunk + u];
-              f1 += part[rc + r * chunk + u];
-              f2 += part[2 * rc + r * chunk + u];
-            }
-            const float g = fmaxf(site_g(f0, ws), FLT_MIN);
+            float f[3];
+            rate_sums(part, ws - base, f);
+            const float g = fmaxf(site_g(f[0], ws), FLT_MIN);
             const float inv_g = 1.0f / g;
+            float f1 = f[1], f2 = f[2];
             if constexpr (HAS_PINV) {
               f1 = omp * f1;
               f2 = omp * f2;
@@ -1156,6 +1232,7 @@ struct TeamCtx {
       if (!bad && d1 < 0.0f) x_hi = x;
       x = xn;
     }
+    if constexpr (CLUSTER) pbuf = buf;
     return x;
   }
 };
@@ -1163,8 +1240,12 @@ struct TeamCtx {
 // K = NS states with a runtime rate count R: CTA b takes pairs b, b + grid,
 // ... (the grid is what the SMs hold at once), every thread of the team
 // holding the same p, so no thread diverges on it. GLOBAL_T: T in
-// t_scratch, one slice per CTA. WALK: R > TEAM_WARPS (TeamCtx).
-template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV, bool WALK>
+// t_scratch, one slice per CTA. CLUSTER: R > TEAM_WARPS, a cluster of
+// cluster_ctas(R) CTAs per pair (launched with its dimension at run time),
+// cluster g taking pairs g, g + clusters, ..., and its CTA of rank c
+// holding the rates [8c, min(8c + 8, R)); a cluster barrier ends every
+// pair.
+template <int NS, bool MIX, bool GLOBAL_T, bool HAS_PINV, bool CLUSTER>
 __global__ void __launch_bounds__(TEAM, 1)
 blo_newton_team_kernel(const float* __restrict__ tU,
                        const float* __restrict__ tV,
@@ -1191,39 +1272,62 @@ blo_newton_team_kernel(const float* __restrict__ tU,
                        float* __restrict__ out_done,
                        int* __restrict__ out_smoothings,
                        int* __restrict__ out_iters) {
+  // the launch's cluster dimension is cluster_ctas(R) (launch_team)
+  int rank = 0, ctas = 1;
+  if constexpr (CLUSTER) {
+    rank = cluster_rank();
+    ctas = cluster_ctas(R);
+  }
+  const int r0 = rank * TEAM_WARPS;         // this CTA's first rate
+  const int RS = CLUSTER ? TEAM_WARPS : R;  // its rate slots
+  const int RL = CLUSTER ? min(TEAM_WARPS, R - r0) : R;  // its rates
   const int RK = R * NS;
   const int KQ = MIX ? RK : NS;  // tip rows; also A/piA rows
-  const size_t ROWS = RK + (HAS_PINV ? 1 : 0);
-  const TeamLayout L(NS, R, MIX, HAS_PINV, width);
+  const int RKS = RS * NS;
+  const int KQS = MIX ? RKS : NS;
+  const int RKL = RL * NS;
+  const int KQL = MIX ? RKL : NS;
+  const size_t ROWS = RKS + (HAS_PINV ? 1 : 0);
+  const TeamLayout L(NS, RS, MIX, HAS_PINV, width);
   extern __shared__ __align__(16) float team_smem[];
   float* smem = team_smem;
-  float* s_x = smem;                 // [RK]
-  float* s_wA = s_x + RK;            // [RK * NS]
-  float* s_A = s_wA + RK * NS;       // [KQ * NS]
-  float* s_piA = s_A + KQ * NS;      // [KQ * NS]
-  for (int i = threadIdx.x; i < RK; i += TEAM) s_x[i] = x_rk[i];
-  for (int i = threadIdx.x; i < RK * NS; i += TEAM) s_wA[i] = wA[i];
-  for (int i = threadIdx.x; i < KQ * NS; i += TEAM) {
-    s_A[i] = A[i];
-    s_piA[i] = piA[i];
+  float* s_x = smem;                 // [RKS]
+  float* s_wA = s_x + RKS;           // [RKS * NS]
+  float* s_A = s_wA + RKS * NS;      // [KQS * NS]
+  float* s_piA = s_A + KQS * NS;     // [KQS * NS]
+  // this CTA's rows of the tables (a single matrix's A and piA whole)
+  const float* g_x = x_rk + r0 * NS;
+  const float* g_wA = wA + r0 * NS * NS;
+  const float* g_A = MIX ? A + r0 * NS * NS : A;
+  const float* g_piA = MIX ? piA + r0 * NS * NS : piA;
+  for (int i = threadIdx.x; i < RKL; i += TEAM) s_x[i] = g_x[i];
+  for (int i = threadIdx.x; i < RKL * NS; i += TEAM) s_wA[i] = g_wA[i];
+  for (int i = threadIdx.x; i < KQL * NS; i += TEAM) {
+    s_A[i] = g_A[i];
+    s_piA[i] = g_piA[i];
   }
   __syncthreads();
+  // the fastest eigen rate over every rate of the pair
   float lam = 0.0f;
-  for (int i = 0; i < RK; ++i) lam = fmaxf(lam, fabsf(s_x[i]));
+  for (int i = 0; i < RK; ++i) {
+    lam = fmaxf(lam, fabsf(CLUSTER ? x_rk[i] : s_x[i]));
+  }
 
   const int tid = threadIdx.x;
   const int warp = tid / WARP;
   const int lane = tid % WARP;
-  // warps of a rate up to TEAM_WARPS rates; past them (WALK) warp w walks
-  // the rates w, w + TEAM_WARPS, ..., a chunk one tile of 32 sites
-  const int per_rate = WALK ? 1 : TEAM_WARPS / R;
-  TeamCtx<NS, MIX, HAS_PINV, WALK> c;
+  // TEAM_WARPS / R warps a rate up to TEAM_WARPS rates; one a rate in each
+  // CTA of a cluster
+  const int per_rate = TEAM_WARPS / RS;
+  TeamCtx<NS, MIX, HAS_PINV, CLUSTER> c;
   c.ld = S;
-  c.R = R;
+  c.R = RL;
+  c.rates = R;
+  c.rank = rank;
   c.width = width;
   c.tile = per_rate * WARP;
-  c.chunk = WALK ? WARP : c.tile * (RED_UNITS / TEAM);
-  c.units = red_units(R);
+  c.chunk = c.tile * (RED_UNITS / TEAM);
+  c.rc = RS * c.chunk;
   c.tid = tid;
   c.lane = lane;
   c.rate = warp / per_rate;
@@ -1244,8 +1348,11 @@ blo_newton_team_kernel(const float* __restrict__ tU,
   c.A = s_A;
   c.piA = s_piA;
   const bool count = out_iters != nullptr;
+  // the window rows from this CTA's first rate on (a single matrix's tip
+  // rows serve every rate)
+  const int64_t row0 = static_cast<int64_t>(r0) * NS * S;
 
-  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+  for (int p = blockIdx.x / ctas; p < P; p += gridDim.x / ctas) {
     const float orig = orig_len[p];
     float out[5];
     int counts[2] = {0, 0};
@@ -1262,20 +1369,22 @@ blo_newton_team_kernel(const float* __restrict__ tU,
       const int span = min(min(spans[p], width), S - begin);
       c.span = span;
       c.sbuf = 0;
-      c.wu = tU + e * RK * S + begin;
-      c.wv = tV + e * RK * S + begin;
-      c.wq = tQ + q * KQ * S + begin;
+      c.pbuf = 0;
+      c.wu = tU + e * RK * S + row0 + begin;
+      c.wv = tV + e * RK * S + row0 + begin;
+      c.wq = tQ + q * KQ * S + (MIX ? row0 : 0) + begin;
       if constexpr (HAS_PINV) {
         // the +I row of T: pv = exp(invq - ls) over the span, once per pair
+        // (in every CTA of a cluster: its reducers read it)
         for (int w = tid; w < span; w += TEAM) {
           const int s = begin + w;
-          c.T[RK * width + w] = expf(invq[q * S + s] - ls[e * S + s]);
+          c.T[RKL * width + w] = expf(invq[q * S + s] - ls[e * S + s]);
         }
       }
       __syncthreads();
       solve_pair<HAS_PINV>(c, orig, max_smoothings, out, counts);
     }
-    if (tid == 0) {
+    if (tid == 0 && rank == 0) {
       out_logl[p] = out[0];
       out_pendant[p] = out[1];
       out_distal[p] = out[2];
@@ -1286,6 +1395,9 @@ blo_newton_team_kernel(const float* __restrict__ tU,
         out_iters[p] = counts[1];
       }
     }
+    // no CTA takes the next pair, or exits, while another of its cluster
+    // still reads its partial sums
+    if constexpr (CLUSTER) cluster_sync();
   }
 }
 
@@ -1323,11 +1435,16 @@ struct Args {
   int num_rates;
 };
 
+// geo's entries: {threads per CTA, CTAs per SM, dynamic shared bytes, T in
+// shared memory, registers per thread, CTAs per cluster, clusters the card
+// holds at once}
+constexpr int GEO_N = 7;
+
 // Sets the kernel's shared memory and reads how many of its CTAs an SM
-// holds (the runtime's occupancy): geo = {threads per CTA, CTAs per SM,
-// dynamic shared bytes, T in shared memory, registers per thread}; with
-// ``a``, ``grid`` is that many persistent CTAs per SM, never more than
-// ``blocks`` (the pairs or the device-memory scratch's slices).
+// holds (the runtime's occupancy) into geo (a cluster of one CTA, the
+// card holding CTAs per SM x SMs of them); with ``a``, ``grid`` is that
+// many persistent CTAs, never more than ``blocks`` (the pairs or the
+// device-memory scratch's slices).
 template <class Kernel>
 int persistent_grid(Kernel kernel, int threads, bool global_t,
                     const Args* a, int smem_floats, int* geo, int* grid) {
@@ -1347,15 +1464,65 @@ int persistent_grid(Kernel kernel, int threads, bool global_t,
   }
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  geo[0] = threads;
-  geo[1] = per_sm;
-  geo[2] = smem;
-  geo[3] = global_t ? 0 : 1;
-  geo[4] = attr.numRegs;
+  const int g[GEO_N] = {threads,      per_sm, smem, global_t ? 0 : 1,
+                        attr.numRegs, 1,      per_sm * sms};
+  std::copy(g, g + GEO_N, geo);
   if (a == nullptr) return 0;
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
   *grid = std::max(1, std::min(a->blocks, per_sm * sms));
   return 0;
+}
+
+// K = 20 past TEAM_WARPS rates: clusters of C CTAs, launched with their
+// dimension at run time (cudaLaunchKernelEx). geo as persistent_grid's,
+// the card's clusters from cudaOccupancyMaxActiveClusters; with ``a``
+// the grid is that many persistent clusters, never more than ``blocks``
+// / C (``blocks``: CTAs, the device-memory scratch's slices). A cluster
+// the card cannot hold returns cudaErrorLaunchOutOfResources, and a
+// launch the runtime refuses its code.
+template <class Kernel>
+int cluster_launch(Kernel kernel, int C, bool global_t, const Args* a,
+                   int smem_floats, int* geo, cudaStream_t stream) {
+  const int smem = smem_floats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = C;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(TEAM, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = dims;
+  cfg.numAttrs = 1;
+  int per_sm = 0, clusters = 0;
+  cudaFuncAttributes attr;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TEAM,
+                                                      smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int g[GEO_N] = {TEAM, per_sm, smem, global_t ? 0 : 1, attr.numRegs,
+                        C,    clusters};
+  std::copy(g, g + GEO_N, geo);
+  if (a == nullptr) return 0;
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  cfg.gridDim =
+      dim3(C * std::max(1, std::min(a->blocks / C, clusters)), 1, 1);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, a->tU, a->tV, a->tQ, a->S, a->num_rates, a->invq, a->ls,
+      a->omp, a->e_ids, a->q_ids, a->begins, a->spans, a->orig_len, a->skip,
+      a->x_rk, a->wA, a->A, a->piA, a->P, a->width, a->max_smoothings,
+      a->t_scratch, a->logl, a->pendant, a->distal, a->proximal, a->done,
+      a->smoothings, a->iters);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the sumtable's home: shared memory where T fits, else (``device_t``: a
@@ -1384,21 +1551,26 @@ int launch_dna(const Args* a, int R, int width, bool device_t, int* geo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K = 20: one CTA a pair up to TEAM_WARPS rates, a cluster of
+// cluster_ctas(R) past them, each CTA laid out for its slice_rates(R)
 template <bool MIX>
 int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
                 cudaStream_t stream) {
   constexpr bool HAS_PINV = BLO_HAS_PINV != 0;
-  const TeamLayout L(20, R, MIX, HAS_PINV, width);
-  if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
   constexpr int N = 20;
-  const bool walk = R > TEAM_WARPS;
-  const auto kernel =
-      device_t ? (walk ? blo_newton_team_kernel<N, MIX, true, HAS_PINV, true>
-                       : blo_newton_team_kernel<N, MIX, true, HAS_PINV, false>)
-               : (walk ? blo_newton_team_kernel<N, MIX, false, HAS_PINV, true>
-                       : blo_newton_team_kernel<N, MIX, false, HAS_PINV,
-                                                false>);
+  const TeamLayout L(N, slice_rates(R), MIX, HAS_PINV, width);
+  if (!device_t && L.t_end > SMEM_LIMIT_FLOATS) return -3;
   const int smem_floats = device_t ? L.t : L.t_end;
+  if (R > TEAM_WARPS) {
+    const auto kernel =
+        device_t ? blo_newton_team_kernel<N, MIX, true, HAS_PINV, true>
+                 : blo_newton_team_kernel<N, MIX, false, HAS_PINV, true>;
+    return cluster_launch(kernel, cluster_ctas(R), device_t, a, smem_floats,
+                          geo, stream);
+  }
+  const auto kernel =
+      device_t ? blo_newton_team_kernel<N, MIX, true, HAS_PINV, false>
+               : blo_newton_team_kernel<N, MIX, false, HAS_PINV, false>;
   int grid = 0;
   const int rc = persistent_grid(kernel, TEAM, device_t, a, smem_floats, geo,
                                  &grid);
@@ -1415,11 +1587,13 @@ int launch_team(const Args* a, int R, int width, bool device_t, int* geo,
 int blo_newton_team(const Args* a, int num_states, int R, int mixture,
                     int width, bool device_t, int* geo,
                     cudaStream_t stream) {
-  // the rate cap: the tables (and rows and buffers) beside one 32-site
-  // tile of T with +I must fit (ops/blo_kernel.py::max_rates)
+  // the rate caps (ops/blo_kernel.py::max_rates): at K = 4 the tables (and
+  // rows and buffers) beside one 32-site tile of T with +I must fit; at
+  // K = 20 the cluster holds at most MAX_CLUSTER CTAs
   if (R < 1 || width < 1 || (num_states != K && num_states != 20) ||
-      TeamLayout(num_states, R, mixture, true, WARP).t_end >
-          SMEM_LIMIT_FLOATS) {
+      (num_states == K &&
+       TeamLayout(K, R, false, true, WARP).t_end > SMEM_LIMIT_FLOATS) ||
+      (num_states == 20 && R > MAX_CLUSTER * TEAM_WARPS)) {
     return -1;
   }
   if (num_states == 20) {
@@ -1452,15 +1626,17 @@ extern "C" {
 
 // Returns 0 or a cudaError_t code. num_states (4 or 20), num_rates (1 to
 // the cap of ops/blo_kernel.py::max_rates; past 8 the K = 4 runtime-R
-// instantiation and the K = 20 WALK build) and mixture (per-rate A/piA
+// instantiation and the K = 20 cluster) and mixture (per-rate A/piA
 // [RK][K] and tQ [Q, RK, S]; K = 20 only, and not in the +I library)
 // select the instantiation, RK = num_states *
 // num_rates; -1 means an unsupported combination, -2 a missing +I input,
 // -3 a sumtable too wide for shared memory without a t_scratch. At most
-// ``blocks`` persistent CTAs; t_scratch is null (T in shared memory) or
-// holds ``blocks`` slices of [RK (+1)][width] floats in device memory.
-// next_pair [1] is the K = 4 kernel's pair counter, 0 at launch (the
-// K = 20 kernel walks its pairs by grid stride and reads no counter).
+// ``blocks`` persistent CTAs (whole clusters of them past 8 rates at
+// K = 20); t_scratch is null (T in shared memory) or holds ``blocks``
+// slices of [RK (+1)][width] floats in device memory (RK: a CTA's rate
+// slots x num_states). next_pair [1] is the K = 4 kernel's pair counter,
+// 0 at launch (the K = 20 kernel walks its pairs by grid stride and reads
+// no counter).
 // invq [Q, S], ls [E, S] and omp [1] are read only by the +I library;
 // smoothings and iters [P] are both null (no counters) or both set.
 int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
@@ -1487,7 +1663,7 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
                width,  max_smoothings,  blocks,  t_scratch,      next_pair,
                logl,   pendant, distal, proximal, done,          smoothings,
                iters,  num_rates};
-  int geo[5];
+  int geo[GEO_N];
   return blo_newton_team(&a, num_states, num_rates, mixture, width,
                          t_scratch != nullptr, geo,
                          static_cast<cudaStream_t>(stream));
@@ -1495,9 +1671,10 @@ int blo_newton_launch(const float* tU, const float* tV, const float* tQ,
 
 // The geometry a launch at this state count, rate count, mixture flag and
 // width takes (device_t: with a t_scratch), as the launcher reads it from
-// the runtime: geo[5] = {threads per CTA, CTAs per SM, dynamic shared
-// bytes, 1 if T is in shared memory, registers per thread}. Returns 0 or
-// an error code as blo_newton_launch does.
+// the runtime: geo[7] = {threads per CTA, CTAs per SM, dynamic shared
+// bytes, 1 if T is in shared memory, registers per thread, CTAs per
+// cluster, clusters the card holds at once}. Returns 0 or an error code
+// as blo_newton_launch does.
 int blo_newton_team_geometry(int num_states, int num_rates, int mixture,
                              int width, int device_t, int* geo) {
   return blo_newton_team(nullptr, num_states, num_rates, mixture, width,
@@ -1507,8 +1684,9 @@ int blo_newton_team_geometry(int num_states, int num_rates, int mixture,
 const char* blo_newton_error_string(int code) {
   if (code == -1) {
     return "unsupported state count, rate count or mixture (4 or 20 "
-           "states, the rates whose tables fit shared memory beside a "
-           "32-site tile of T, mixtures at 20 states without +I)";
+           "states; at 4 the rates whose tables fit shared memory beside "
+           "a 32-site tile of T, at 20 up to 64; mixtures at 20 states "
+           "without +I)";
   }
   if (code == -2) {
     return "missing +I input, counter output or K = 4 pair counter";

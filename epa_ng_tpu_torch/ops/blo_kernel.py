@@ -12,7 +12,8 @@ output. It is instantiated for DNA (K = 4) and protein (K = 20), and at
 K = 20 for matrix mixtures (LG4M/LG4X: per-rate coefficient tables and a
 per-category query tip), as ``_blo_compute`` is, at 1 to
 :data:`MAX_RATES` rate categories (past 8: the K = 4 runtime-R
-instantiation, the K = 20 team's warps walking rates). Its Newton solves
+instantiation; at K = 20 a thread-block cluster of ceil(R / 8) CTAs a
+pair, each holding 8 of the rates). Its Newton solves
 carry the guarded snap (``ops.newton.cancelled``), which the TPU kernel
 lacks. Its interface is :data:`blo_newton`:
 
@@ -50,7 +51,8 @@ per pair). The kernel takes a window of any width: its sumtable sits in
 shared memory up to :func:`max_shared_sites` and in device memory beyond,
 so the engine never needs the TPU path's windowed fallbacks. Each pair runs
 on a team of threads in one persistent CTA, ``DNA_TEAM`` at K = 4 and
-``WIDE_TEAM`` at K = 20 (:func:`kernel_geometry`).
+``WIDE_TEAM`` at K = 20 (:func:`kernel_geometry`), or past 8 rates at
+K = 20 on a cluster of such CTAs (:func:`cluster_ctas`).
 """
 
 from __future__ import annotations
@@ -82,10 +84,17 @@ PB = 128            # pair-padding granule of the engine's control flow
 # exponential rows and reduction buffers (227 KB usable per block), and in
 # a device-memory scratch of at most T_SCRATCH_BYTES beyond, one slice per
 # CTA. At K = 20 one barrier publishes the partial sums of RED_UNITS
-# (site, rate) units.
+# (site, rate) units; past CLUSTER_RATES rates a pair runs on a cluster of
+# up to MAX_CLUSTER CTAs (csrc/blo_newton.cu MAX_CLUSTER, the most a
+# portable cluster holds), CLUSTER_RATES rates each, one a warp.
 DNA_TEAM = 128
 WIDE_TEAM = 256
 RED_UNITS = 512
+CLUSTER_RATES = WIDE_TEAM // 32
+MAX_CLUSTER = 8
+# the JAX package's Pallas budget (epa_ng_tpu/ops/pallas_blo.py
+# MAX_RK_SITES): it runs its XLA twin where R K x 32 sites exceed it
+MAX_RK_SITES = 24576
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_PER_SM = 228 * 1024      # of which the runtime keeps 1 KB per block
 T_SCRATCH_BYTES = 256 << 20
@@ -122,37 +131,36 @@ def _team(k: int) -> int:
     return DNA_TEAM if k == 4 else WIDE_TEAM
 
 
-def _rates_per_warp(r: int) -> int:
-    """K = 20: rates a warp walks, w, w + 8, ... past 8 rates (up to 8,
-    8 / R warps share one rate)."""
-    warps = WIDE_TEAM // 32
-    return -(-r // warps) if r > warps else 1
+def cluster_ctas(k: int, r: int) -> int:
+    """CTAs a pair runs on: one, or at K = 20 past CLUSTER_RATES rates a
+    cluster of ceil(R / CLUSTER_RATES), CTA c holding the rates
+    [8c, min(8c + 8, R)) (``cluster_ctas``)."""
+    return 1 if k == 4 else -(-r // CLUSTER_RATES)
+
+
+def _slice_rates(k: int, r: int) -> int:
+    """The rate slots one CTA's layout holds: R, or CLUSTER_RATES in each
+    CTA of a cluster (``slice_rates``)."""
+    return r if k == 4 else min(r, CLUSTER_RATES)
 
 
 def _exp_bytes(k: int, r: int = 1) -> int:
     """Shared memory of a CTA for its exponential rows e^{x t}, two per
     warp: at K = 4 the RK exponentials, 32 floats (RK rounded up to 32
-    past 8 rates, each lane filling every 32nd entry); at K = 20 32 floats
-    for each rate the warp walks."""
-    row = (max(32, _round32(4 * r)) if k == 4
-           else 32 * _rates_per_warp(r))
+    past 8 rates, each lane filling every 32nd entry); at K = 20 the 20 of
+    the warp's rate in 32 floats."""
+    row = max(32, _round32(4 * r)) if k == 4 else 32
     return _team(k) // 32 * 2 * row * 4
 
 
-def _red_units(r: int) -> int:
-    """K = 20: (site, rate) units of a reduction buffer: RED_UNITS, or a
-    32-site chunk of every rate past 16 rates (``red_units``)."""
-    return max(RED_UNITS, 32 * r)
-
-
-def _red_bytes(k: int, r: int = 1) -> int:
+def _red_bytes(k: int) -> int:
     """Shared memory of a CTA for its reductions: warp slots [2][2][warps]
     (at K = 4 then two ints, the next pair's index, and max |x_rk|;
     rounded up to 32 floats) and, at K = 20, per-unit partial sums
-    [2][3][units]."""
+    [2][3][RED_UNITS]."""
     if k == 4:
         return _round32(4 * DNA_TEAM // 32 + 3) * 4
-    return (6 * _red_units(r) + _round32(4 * WIDE_TEAM // 32)) * 4
+    return (6 * RED_UNITS + _round32(4 * WIDE_TEAM // 32)) * 4
 
 
 def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
@@ -168,16 +176,20 @@ def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
 
 def _team_fixed_bytes(k: int, R: int, mixture: bool) -> int:
     """A CTA's shared memory ahead of T: tables, exponential rows,
-    reduction buffers."""
-    return _tab_bytes(k, R, mixture) + _exp_bytes(k, R) + _red_bytes(k, R)
+    reduction buffers (at K = 20 for its slice of the rates)."""
+    s = _slice_rates(k, R)
+    return _tab_bytes(k, s, mixture) + _exp_bytes(k, s) + _red_bytes(k)
 
 
 def max_rates(num_states: int, mixture: bool = False) -> int:
     """The most rate categories the kernel takes at ``num_states`` (and
-    for a matrix mixture): the largest R whose tables, exponential rows and
+    for a matrix mixture; csrc/blo_newton.cu ``blo_newton_team`` refuses
+    past it): at K = 4 the largest R whose tables, exponential rows and
     reduction buffers fit shared memory beside one 32-site tile of T with
-    the +I row (csrc/blo_newton.cu ``blo_newton_team`` refuses past it).
-    312 at K = 4, 43 at K = 20, 27 for a mixture."""
+    the +I row, 312; at K = 20 CLUSTER_RATES rates in each of MAX_CLUSTER
+    CTAs, 64, a single matrix or a mixture."""
+    if num_states != 4:
+        return CLUSTER_RATES * MAX_CLUSTER
     fits = lambda r: (_team_fixed_bytes(num_states, r, mixture)
                       + _round32(_t_stride(num_states, num_states * r, True)
                                  * 32) * 4 <= SMEM_PER_BLOCK)
@@ -198,10 +210,11 @@ def kernel_geometry(num_states: int, R: int, width: int,
     """The kernel's geometry at ``num_states`` (4 or 20) and R rate
     categories for sumtable width ``width``, as csrc/blo_newton.cu
     (``TeamLayout``, ``launch_dna``, ``launch_team``) sets it up:
-    ``threads`` per pair (one CTA), ``tile`` (thread t owns sites t,
-    t + tile, ...; at K = 20 of its rate), ``t_shared`` (T in shared
-    memory; else in the device-memory scratch) and ``shared_bytes`` of the
-    CTA; and ``ctas_per_sm`` and ``warps_per_sm`` as the runtime's
+    ``threads`` per CTA, ``cluster`` CTAs per pair (past 8 rates at K = 20,
+    each holding ``slice_rates`` rate slots), ``tile`` (thread t owns
+    sites t, t + tile, ...; at K = 20 of its rate), ``t_shared`` (T in
+    shared memory; else in the device-memory scratch) and ``shared_bytes``
+    of a CTA; and ``ctas_per_sm`` and ``warps_per_sm`` as the runtime's
     occupancy gives them for ``regs`` registers a thread (the count ptxas
     gave the instantiation, which :meth:`_BloNewton.team_geometry` reads
     back; 255, the most a thread may hold, by default): registers go to
@@ -209,8 +222,9 @@ def kernel_geometry(num_states: int, R: int, width: int,
     CTA's shared memory costs 1 KB more."""
     threads = _team(num_states)
     warps = threads // 32
+    s = _slice_rates(num_states, R)
     fixed = _team_fixed_bytes(num_states, R, mixture)
-    t = _round32(_t_stride(num_states, num_states * R, has_pinv)
+    t = _round32(_t_stride(num_states, num_states * s, has_pinv)
                  * width) * 4
     t_shared = fixed + t <= SMEM_PER_BLOCK
     shared = fixed + t * t_shared
@@ -219,7 +233,8 @@ def kernel_geometry(num_states: int, R: int, width: int,
     ctas = min(MAX_THREADS_PER_SM // threads, MAX_CTAS_PER_SM, by_regs,
                SMEM_PER_SM // (shared + 1024))
     tile = threads if num_states == 4 else 32 * max(1, warps // R)
-    return dict(threads=threads, tile=tile, t_shared=t_shared,
+    return dict(threads=threads, cluster=cluster_ctas(num_states, R),
+                slice_rates=s, tile=tile, t_shared=t_shared,
                 shared_bytes=shared, regs=regs, ctas_per_sm=ctas,
                 warps_per_sm=ctas * warps)
 
@@ -227,14 +242,17 @@ def kernel_geometry(num_states: int, R: int, width: int,
 def max_shared_sites(rk: int, has_pinv: bool = False, num_states: int = 4,
                      mixture: bool = False) -> int:
     """Widest window whose sumtable the kernel keeps in shared memory; wider
-    windows keep it in device memory: one pair's T beside the CTA's
-    tables, exponential rows and reduction buffers. +I adds one row (pv)
-    to the sumtable. K = 4: 2880 sites at RK = 16, with or without +I (20
-    floats a site). K = 20: 640 sites at RK = 80, with or without +I (608
-    for a mixture)."""
-    room = SMEM_PER_BLOCK - _team_fixed_bytes(num_states, rk // num_states,
-                                              mixture)
-    return room // (_t_stride(num_states, rk, has_pinv) * 4) // 32 * 32
+    windows keep it in device memory: one pair's T (at K = 20 past 8 rates
+    a cluster CTA's rows of it) beside the CTA's tables, exponential rows
+    and reduction buffers. +I adds one row (pv) to the sumtable. K = 4:
+    2880 sites at RK = 16, with or without +I (20 floats a site). K = 20:
+    640 sites at RK = 80, with or without +I (608 for a mixture); 288 at
+    RK = 320 and beyond, with or without +I (256 for a mixture)."""
+    R = rk // num_states
+    room = SMEM_PER_BLOCK - _team_fixed_bytes(num_states, R, mixture)
+    rows = _t_stride(num_states, num_states * _slice_rates(num_states, R),
+                     has_pinv)
+    return room // (rows * 4) // 32 * 32
 
 
 def kernel_width(spans) -> int:
@@ -244,20 +262,34 @@ def kernel_width(spans) -> int:
     return max(32, -(-widest // 32) * 32)
 
 
+def twin_rates(num_states: int, num_rates: int,
+               mixture: bool = False) -> bool:
+    """More rate categories than the kernel takes (:data:`MAX_RATES`), at
+    a count the JAX package never gives its Pallas kernel at any width
+    (R K x 32 sites past ``MAX_RK_SITES``) and runs on its XLA twin."""
+    return (num_rates > MAX_RATES[(num_states, mixture)]
+            and num_states * num_rates * 32 > MAX_RK_SITES)
+
+
 def twin_route(consts, sliding: bool = True) -> bool:
     """True for the models and modes that the JAX package never gives its
     Pallas kernel (``pallas_blo.blo_supported``) and runs on its XLA twin:
-    non-sliding (``--raxml-blo``) BLO, and state counts other than 4 and
-    20 (binary, genotype). The port runs the torch twin (ops.newton) there,
-    on the card as well."""
-    return not sliding or int(consts.A.shape[-1]) not in K_STATES
+    non-sliding (``--raxml-blo``) BLO, state counts other than 4 and 20
+    (binary, genotype), and rate counts past the kernel's cap
+    (:func:`twin_rates`: more than 312 at K = 4, 64 at K = 20). The port
+    runs the torch twin (ops.newton) there, on the card as well."""
+    k = int(consts.A.shape[-1])
+    r = int(consts.rates.shape[0])
+    return (not sliding or k not in K_STATES
+            or twin_rates(k, r, consts.A.ndim == 3 and r > 1))
 
 
 def blo_unsupported(consts, sliding: bool = True):
     """Why the CUDA kernel cannot take this model, or None: it takes DNA
     (K = 4) and protein (K = 20) with one substitution matrix, and
     protein matrix mixtures (LG4M/LG4X), with 1 to :data:`MAX_RATES` rate
-    categories (312 at K = 4, 43 at K = 20, 27 for a mixture), with or
+    categories (312 at K = 4, 64 at K = 20, a single matrix or a mixture;
+    more take the twin, :func:`twin_route`), with or
     without +I (the engine takes no +I with a mixture), f32 and sliding
     BLO, at any window width."""
     k = int(consts.A.shape[-1])
@@ -651,7 +683,8 @@ class _BloNewton:
     calls): ``launches`` all launches, ``pinv_launches`` those with the +I
     term (K2/K4), ``counted_launches`` those with the K5 counters on,
     ``past8_launches`` those at more than 8 rate categories (the K = 4
-    runtime-R instantiation, the K = 20 team's warps walking rates), and
+    runtime-R instantiation, the K = 20 cluster), ``cluster_launches``
+    those of the K = 20 cluster (a cluster of CTAs per pair), and
     one count per instantiation family: ``k4_launches`` (DNA),
     ``k20_launches`` (protein, one matrix) and ``mixture_launches``
     (protein matrix mixtures); and one per call shape: ``blocked_launches``
@@ -664,8 +697,8 @@ class _BloNewton:
     and only the FMA timing of ``chip_smoke.py --fmad-ab`` turns it on."""
 
     _COUNTS = ("launches", "pinv_launches", "counted_launches",
-               "past8_launches", "k4_launches", "k20_launches",
-               "mixture_launches", "blocked_launches",
+               "past8_launches", "cluster_launches", "k4_launches",
+               "k20_launches", "mixture_launches", "blocked_launches",
                "per_pair_launches")
 
     def __init__(self, fmad: bool = False):
@@ -735,11 +768,14 @@ class _BloNewton:
                       device_t: bool = False) -> dict:
         """The geometry of a launch as the library sets it up on the current
         card: ``threads`` per CTA, ``ctas_per_sm`` (the runtime's
-        occupancy, which sets the persistent grid), ``shared_bytes``,
-        ``t_shared`` and the instantiation's ``regs`` per thread;
-        ``device_t`` as with a device-memory scratch."""
+        occupancy), ``shared_bytes``, ``t_shared``, the instantiation's
+        ``regs`` per thread, the ``cluster``'s CTAs per pair and the
+        ``active_clusters`` the card holds at once (CTAs per SM x SMs for
+        a cluster of one), which set the persistent grid; ``device_t`` as
+        with a device-memory scratch. All but ``active_clusters``, which
+        the card's GPCs set, are :func:`kernel_geometry`'s."""
         lib = self.build(has_pinv)
-        geo = (ctypes.c_int * 5)()
+        geo = (ctypes.c_int * 7)()
         rc = lib.blo_newton_team_geometry(num_states, R, int(mixture), width,
                                           int(device_t), geo)
         if rc != 0:
@@ -747,7 +783,7 @@ class _BloNewton:
             raise RuntimeError(f"blo_newton geometry: {msg} ({rc})")
         return dict(threads=geo[0], ctas_per_sm=geo[1],
                     shared_bytes=geo[2], t_shared=bool(geo[3]),
-                    regs=geo[4])
+                    regs=geo[4], cluster=geo[5], active_clusters=geo[6])
 
     def build_all(self):
         """Build both flavours with two nvcc processes side by side."""
@@ -823,21 +859,23 @@ class _BloNewton:
                 for _ in range(5)]
         counts = ([torch.empty(P, dtype=torch.int32, device=dev)
                    for _ in range(2)] if counters else [])
-        # one persistent CTA per resident team; the library keeps T in
-        # shared memory where it fits (kernel_geometry mirrors its choice),
-        # else in a device-memory scratch of one slice per CTA
-        blocks, scratch = P, None
-        if not kernel_geometry(K, R, width, mixture, has_pinv)["t_shared"]:
-            per_pair = _t_stride(K, RK, has_pinv) * width
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # one persistent CTA (or cluster of CTAs) per resident team; the
+        # library keeps T in shared memory where it fits (kernel_geometry
+        # mirrors its choice), else in a device-memory scratch of one slice
+        # per CTA
+        geo = kernel_geometry(K, R, width, mixture, has_pinv)
+        C = geo["cluster"]
+        blocks, scratch = P * C, None
+        if not geo["t_shared"]:
+            per_cta = _t_stride(K, K * geo["slice_rates"], has_pinv) * width
             # the library sets its attributes and reads the occupancy on
             # the current card: make it the one this launch runs on
             with torch.cuda.device(dev):
-                ctas = self.team_geometry(K, R, width, mixture, has_pinv,
-                                          device_t=True)["ctas_per_sm"]
-            blocks = max(1, min(P, sms * ctas,
-                                T_SCRATCH_BYTES // (per_pair * 4)))
-            scratch = torch.empty(blocks * per_pair, dtype=torch.float32,
+                held = self.team_geometry(K, R, width, mixture, has_pinv,
+                                          device_t=True)["active_clusters"]
+            blocks = C * max(1, min(P, held,
+                                    T_SCRATCH_BYTES // (per_cta * 4 * C)))
+            scratch = torch.empty(blocks * per_cta, dtype=torch.float32,
                                   device=dev)
         # the K = 4 kernel's pair counter, 0 at launch
         next_pair = (torch.zeros(1, dtype=torch.int32, device=dev)
@@ -861,6 +899,7 @@ class _BloNewton:
             for key, on in (("launches", True), ("pinv_launches", has_pinv),
                             ("counted_launches", counters),
                             ("past8_launches", R > STATIC_RATES),
+                            ("cluster_launches", C > 1),
                             (family, True),
                             ("per_pair_launches", per_pair),
                             ("blocked_launches", not per_pair)):

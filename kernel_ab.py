@@ -14,8 +14,11 @@ columns invariant), each at 4096 pairs and at 1024 (about one launch of
 the main path), the K = 20 kernel on 4096 protein (LG+G4{0.8}), protein
 +I (LG+I{0.2}+G4{0.8}, 20% of the columns invariant) and mixture pairs,
 and at 16 rate categories on 4096 pairs each: GTR+G16 and GTR+I{0.2}+G16
-on the DNA and +I pairs, LG+G16{0.8} on the protein pairs (a root whose
-kernel refuses 16 rates reports null there). On its first round each
+on the DNA and +I pairs, LG+G16{0.8} and LG+I{0.2}+G16{0.8} on the protein
+and protein +I pairs, and a 16-component LG-derived mixture (+G16{0.9};
+chip_smoke.register_mixture's recipe, registered here so that any root
+takes it) on the mixture pairs (a root whose kernel refuses a case
+reports null there). On its first round each
 root also reports, per case, the pairs whose kernel logl is off its own
 f64 plain version by more than 0.05 (``pairs_off_f64``, chip_smoke's
 count), so a root before a change to the Newton's arithmetic shows what
@@ -39,13 +42,33 @@ HEAD_START_CYCLES = 100_000_000  # chip_smoke.HEAD_START_CYCLES
 
 CASES = ("dna_4096", "dna_1024", "pinv_4096", "pinv_1024", "protein",
          "protein_pinv", "mixture", "g16_4096", "g16_pinv_4096",
-         "protein_g16")
+         "protein_g16", "protein_pinv_g16", "mixture_g16")
 G16 = "GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+G16{0.6}"
 G16_PINV = ("GTR{1.1/2.9/0.8/1.2/3.4/1}+FU{0.27/0.23/0.24/0.26}+I{0.2}"
             "+G16{0.6}")
 AA_PINV = "LG+I{0.2}+G4{0.8}"
 AA_G16 = "LG+G16{0.8}"
+AA_PINV_G16 = "LG+I{0.2}+G16{0.8}"
+MIX16 = "ABMIX16M"
+MIX16_MODEL = MIX16 + "+G16{0.9}"
 LOGL_ABS_TOL = 0.05      # chip_smoke.LOGL_ABS_TOL
+
+
+def register_mixture16():
+    """MIX16 in the root's matrix-mixture table: 16 components built as
+    chip_smoke.register_mixture builds its four (LG rates and frequencies
+    times exp(0.35 randn), RandomState(11)), gamma-coupled."""
+    import numpy as np
+
+    from epa_ng_tpu_torch.models import aa_matrices
+    rng = np.random.RandomState(11)
+    lg_r, lg_f = aa_matrices.MATRICES["LG"]
+    comps = []
+    for _ in range(16):
+        r = lg_r * np.exp(0.35 * rng.randn(190))
+        f = lg_f * np.exp(0.35 * rng.randn(20))
+        comps.append((r, f / f.sum()))
+    aa_matrices.MIXTURES[MIX16] = (comps, "gamma")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -84,6 +107,7 @@ def time_root(root: str, reps: int, parity: bool) -> dict:
                                   os.path.join(cs.OUT, "data_aa_pinv"),
                                   cs.lg_freqs(), cs.AA)
     cs.register_mixture()
+    register_mixture16()
     mdata, _ = cs.make_random_data(128, 256, 1024, 13,
                                    os.path.join(cs.OUT, "data_mix"))
     out = {"root": root}
@@ -97,7 +121,9 @@ def time_root(root: str, reps: int, parity: bool) -> dict:
             ("mixture", mdata, cs.MIX_MODEL, 4096),
             ("g16_4096", data, G16, 4096),
             ("g16_pinv_4096", pdata, G16_PINV, 4096),
-            ("protein_g16", adata, AA_G16, 4096)):
+            ("protein_g16", adata, AA_G16, 4096),
+            ("protein_pinv_g16", apdata, AA_PINV_G16, 4096),
+            ("mixture_g16", mdata, MIX16_MODEL, 4096)):
         pr = cs.main_path_pairs(data_, "cuda", n_pairs, model)
         eng, blo = pr["eng"], pr["eng"].blo
         width = bk.kernel_width(pr["sp"])

@@ -345,8 +345,8 @@ def test_blo_supported_and_op_count(model_consts, model):
     assert "sliding" in bk.blo_unsupported(c, sliding=False)
     c64 = tnewton.EigConsts(*[x.double() for x in c])
     assert "f32" in bk.blo_unsupported(c64)
-    # 9 rate categories run (the runtime-R instantiation at K = 4, the
-    # warps walking rates at K = 20); one past the cap is refused by name
+    # 9 rate categories run (the runtime-R instantiation at K = 4, a
+    # cluster of two CTAs at K = 20); one past the cap is refused by name
     c9 = c._replace(rates=torch.ones(9))
     assert bk.blo_unsupported(c9) is None
     cap = bk.MAX_RATES[(K, mix)]
@@ -367,10 +367,12 @@ def test_blo_supported_and_op_count(model_consts, model):
     # or without +I
     assert bk.max_shared_sites(80, False, 20, mix) == (608 if mix else 640)
     assert bk.max_shared_sites(80, True, 20) == 640
+    # past 8 rates each CTA of a cluster holds 8 rates' tables and T rows
     for R in range(1, bk.MAX_RATES[(20, True)] + 1):
-        rows, w = 20 * R, bk.max_shared_sites(20 * R, False, 20, True)
-        fixed = (bk._tab_bytes(20, R, True) + bk._exp_bytes(20, R)
-                 + bk._red_bytes(20, R))
+        s = min(R, 8)
+        rows, w = 20 * s, bk.max_shared_sites(20 * R, False, 20, True)
+        fixed = (bk._tab_bytes(20, s, True) + bk._exp_bytes(20, s)
+                 + bk._red_bytes(20))
         assert fixed + rows * w * 4 <= bk.SMEM_PER_BLOCK
         assert fixed + rows * (w + 32) * 4 > bk.SMEM_PER_BLOCK
     assert bk._exp_bytes(4) == 4 * 2 * 32 * 4
@@ -437,10 +439,10 @@ def test_team_site_sum_order(K, R, width):
     K = 4 the team of 128 threads (one tile of 128 sites per pass, the
     butterfly, a tree over 4 warps) at every rate count, at widths below,
     above and at a multiple of the tile; at K = 20 the team (a tile of
-    32 x 8/R sites per pass up to 8 rates, of 32 sites past them, where the
-    warps walk the rates; the butterfly, a tree over 8 warps); bit for bit
-    against the order written out, and within 1e-5 relative of the f64
-    sum."""
+    32 x 8/R sites per pass up to 8 rates, of 32 sites past them, where
+    every CTA of a cluster adds its tile; the butterfly, a tree over 8
+    warps); bit for bit against the order written out, and within 1e-5
+    relative of the f64 sum."""
     tile = bk.kernel_geometry(K, R, width)["tile"]
     warps = bk._team(K) // 32
     assert tile == (128 if K == 4 else 32 * max(1, 8 // R))
@@ -482,44 +484,51 @@ def test_wide_geometry(shape):
 
 @pytest.mark.parametrize("K,R,mix,pinv,tab,shared_sites", [
     (4, 16, False, False, 416, 832), (4, 16, False, True, 416, 832),
-    (4, 9, False, False, 256, 1568), (20, 9, False, False, 4608, 256),
-    (20, 16, False, False, 7520, 128), (20, 16, False, True, 7520, 128),
-    (20, 16, True, False, 19520, 96)])
+    (4, 9, False, False, 256, 1568), (20, 9, False, False, 4160, 288),
+    (20, 16, False, False, 4160, 288), (20, 16, False, True, 4160, 288),
+    (20, 16, True, False, 9760, 256)])
 def test_geometry_past_eight_rates(K, R, mix, pinv, tab, shared_sites):
     """The layout past 8 rate categories, as csrc/blo_newton.cu sets it up:
     K = 4 tables of 24 R + 32 floats (rounded up to 32) and two exponential
-    rows of RK floats a warp, each lane filling every 32nd entry; K = 20
-    warps walking rates w, w + 8, ... (a tile of 32 sites, one row of 32
-    exponentials a rate walked) and reduction buffers of 512 units (32 R
-    past 16 rates); T in shared memory up to ``shared_sites`` (272 B a
-    site at K = 4, R = 16, with or without +I; 1,280 B at K = 20, so the
-    protein windows mostly take the device home), in device memory
-    beyond; and the rate cap, one rate past which the tables and a 32-site
-    tile of T with +I no longer fit."""
-    assert bk._tab_bytes(K, R, mix) == tab * 4
+    rows of RK floats a warp, each lane filling every 32nd entry; K = 20 a
+    cluster of ceil(R / 8) CTAs a pair, each laid out for 8 rates (``tab``
+    floats of tables: its slice's rows, a single matrix's A and piA whole;
+    a tile of 32 sites, one row of 32 exponentials a warp, reduction
+    buffers of 512 units); T in shared memory up to ``shared_sites`` (272
+    B a site at K = 4, R = 16, with or without +I; at K = 20 a CTA's 160
+    rows, 640 B a site, so the protein windows keep the shared home), in
+    device memory beyond; and the rate cap: at K = 4 one rate past which
+    the tables and a 32-site tile of T with +I no longer fit, at K = 20
+    8 rates in each of the 8 CTAs of a portable cluster."""
+    s = R if K == 4 else min(R, 8)
+    assert bk._tab_bytes(K, s, mix) == tab * 4
     warps = bk._team(K) // 32
     if K == 4:
         row = -(-4 * R // 32) * 32
         assert bk._t_stride(4, 4 * R, pinv) == (68 if R == 16 else 36)
     else:
-        row = 32 * -(-R // 8)
-        assert bk._red_bytes(20, R) == (6 * max(512, 32 * R) + 32) * 4
-    assert bk._exp_bytes(K, R) == warps * 2 * row * 4
+        row = 32
+        assert bk._red_bytes(20) == (6 * 512 + 32) * 4
+    assert bk._exp_bytes(K, s) == warps * 2 * row * 4
     assert bk.max_shared_sites(K * R, pinv, K, mix) == shared_sites
     g = bk.kernel_geometry(K, R, shared_sites, mix, pinv)
     assert g["t_shared"] and g["shared_bytes"] <= bk.SMEM_PER_BLOCK
     assert g["tile"] == (128 if K == 4 else 32)
+    assert g["cluster"] == (1 if K == 4 else -(-R // 8))
     dev = bk.kernel_geometry(K, R, shared_sites + 32, mix, pinv)
     assert not dev["t_shared"]
-    assert dev["shared_bytes"] == (bk._tab_bytes(K, R, mix)
-                                   + bk._exp_bytes(K, R)
-                                   + bk._red_bytes(K, R))
+    assert dev["shared_bytes"] == (bk._tab_bytes(K, s, mix)
+                                   + bk._exp_bytes(K, s) + bk._red_bytes(K))
     cap = bk.MAX_RATES[(K, mix)]
-    assert cap == {(4, False): 312, (20, False): 43, (20, True): 27}[K, mix]
-    fits = lambda r: (bk._team_fixed_bytes(K, r, mix)
-                      + bk._round32(bk._t_stride(K, K * r, True) * 32) * 4
-                      <= bk.SMEM_PER_BLOCK)
-    assert fits(cap) and not fits(cap + 1)
+    assert cap == {(4, False): 312, (20, False): 64, (20, True): 64}[K, mix]
+    if K == 4:
+        fits = lambda r: (bk._team_fixed_bytes(K, r, mix)
+                          + bk._round32(bk._t_stride(K, K * r, True) * 32)
+                          * 4 <= bk.SMEM_PER_BLOCK)
+        assert fits(cap) and not fits(cap + 1)
+    else:
+        assert cap == bk.CLUSTER_RATES * bk.MAX_CLUSTER
+        assert bk.kernel_geometry(20, cap, 32, mix, True)["cluster"] == 8
 
 
 @pytest.mark.parametrize("pinv", [False, True])

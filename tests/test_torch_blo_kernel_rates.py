@@ -111,7 +111,7 @@ def test_plain_matches_pallas_interpret_past_eight_rates(R, pinv):
 
 @pytest.mark.parametrize("R", [9, 16])
 def test_plain_matches_xla_twin_past_eight_rates_k20(R):
-    """K = 20 at R = 9 and R = 16 (the warps walking rates w, w + 8, ...)
+    """K = 20 at R = 9 and R = 16 (a cluster of two CTAs a pair on the card)
     against the JAX XLA twin on LG-evolved reads (the protein main path's
     kind of data; on random protein reads most pairs are flat in their
     lengths): another form of the same optimum (a sumtable of the

@@ -32,6 +32,15 @@ def _card():
     return torch.device("cuda")
 
 
+def _same_geometry(lib, g):
+    """The library's launch geometry (the runtime's occupancy at the
+    registers ptxas gave) is kernel_geometry's, on every key both give
+    (the clusters the card holds at once are the runtime's alone)."""
+    assert lib["active_clusters"] >= 1
+    shared = [k for k in lib if k in g]
+    assert {k: lib[k] for k in shared} == {k: g[k] for k in shared}
+
+
 def _state(dev, n_pairs, seed, model=GTR, n_taxa=24, data_seed=9,
            with_invq=False, alphabet="ACGT", invariant=0.0):
     tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=200, n_queries=16,
@@ -76,7 +85,7 @@ def _dna_width(home, pinv):
                                       device_t=home == "device")
     g = bk.kernel_geometry(4, 4, width, has_pinv=pinv, regs=lib["regs"])
     assert g["t_shared"] == (home != "device")
-    assert lib == {k: g[k] for k in lib}
+    _same_geometry(lib, g)
     return width
 
 
@@ -461,7 +470,7 @@ def _aa_width(home, case):
                                       device_t=home == "device")
     g = bk.kernel_geometry(20, 4, width, mix, pinv, regs=lib["regs"])
     assert g["t_shared"] == (home != "device")
-    assert lib == {k: g[k] for k in lib}
+    _same_geometry(lib, g)
     return width
 
 
@@ -598,7 +607,7 @@ RATE_CASES = {"dna": ("GTR{{1.1/2.9/0.8/1.2/3.4/1}}+FU{{0.27/0.23/0.24/"
 @pytest.mark.parametrize("home", ["shared", "widest", "device"])
 def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
     """Past 8 rate categories (the K = 4 runtime-R instantiation, without
-    and with +I; the K = 20 team's warps walking rates, one matrix and a
+    and with +I; the K = 20 cluster of two CTAs a pair, one matrix and a
     nine-component mixture) the kernel matches its plain version on the
     card bit for bit, with the counters, with T in shared memory (at 128
     sites and at the widest window that fits) and in device memory; each
@@ -626,7 +635,7 @@ def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
                                       device_t=home == "device")
     g = bk.kernel_geometry(K, R, width, mix, pinv, regs=lib["regs"])
     assert g["t_shared"] == (home != "device")
-    assert lib == {k: g[k] for k in lib}
+    _same_geometry(lib, g)
     args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, blo.lengths[pe.long()],
             torch.zeros(len(pe), device=dev))
     tables = bk._kernel_scalars(eng.consts, torch.float32)
@@ -677,6 +686,166 @@ def test_engine_g16_takes_the_kernel(monkeypatch):
         agree.append(ll.get(int(y.edge_nums[0]), -np.inf)
                      >= x.logls[0] - 1e-5 * abs(x.logls[0]))
     assert np.mean(close) >= 0.9 and np.mean(agree) >= 0.9
+
+
+CLUSTER_CASES = {"lg9": ("LG+G9{0.8}", None), "lg16": ("LG+G16{0.8}", None),
+                 "lg24": ("LG+G24{0.8}", None),
+                 "lg_pinv16": ("LG+I{0.2}+G16{0.8}", None),
+                 "mix16": ("SMOKEMIX16M+G16{0.9}", 16),
+                 "mix32": ("SMOKEMIX32M+G32{0.9}", 32)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+@pytest.mark.parametrize("home", ["shared", "device"])
+@pytest.mark.parametrize("shape", ["blocked", "per_pair"])
+def test_cluster_matches_plain_on_card(case, home, shape):
+    """The K = 20 cluster (ceil(R / 8) CTAs a pair, 8 rates each) against
+    its plain version on the card, bit for bit with the counters: LG at
+    R = 9, 16 and 24 (clusters of 2, 2 and 3), LG+I{0.2}+G16 on data with
+    20% invariant columns, and 16- and 32-component mixtures; with T in
+    shared memory (128 sites) and in device memory (past the widest
+    shared window), through the blocked call shape (windows of the full
+    stores) and the per-pair one (pre-gathered 64-site windows); each
+    launch counts as a cluster launch past 8 rates, and the library's
+    geometry is kernel_geometry's."""
+    from chip_smoke import register_mixture
+    from epa_ng_tpu_torch.models import aa_matrices
+    dev = _card()
+    model, comps = CLUSTER_CASES[case]
+    pinv, mix = case == "lg_pinv16", comps is not None
+    if mix:
+        register_mixture(comps, model.split("+")[0])
+    try:
+        eng, tQ, pe, pq, pb, sp, invq = _state(
+            dev, 256, seed=len(case), model=model, n_taxa=16, data_seed=21,
+            with_invq=True, alphabet=AA, invariant=0.2 if pinv else 0.0)
+    finally:
+        if mix:
+            aa_matrices.MIXTURES.pop(model.split("+")[0], None)
+    blo = eng.blo
+    R = blo.tU.shape[1] // 20
+    shared = bk.max_shared_sites(20 * R, pinv, 20, mix)
+    width = {"shared": 128, "device": shared + 32}[home]
+    lib = bk.blo_newton.team_geometry(20, R, width, mix, pinv,
+                                      device_t=home == "device")
+    g = bk.kernel_geometry(20, R, width, mix, pinv, regs=lib["regs"])
+    assert g["t_shared"] == (home == "shared")
+    assert lib["cluster"] == -(-R // 8) > 1
+    _same_geometry(lib, g)
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    omp = bk._omp(eng.consts, torch.float32)
+    orig, skip = blo.lengths[pe.long()], torch.zeros(len(pe), device=dev)
+    if shape == "blocked":
+        args = (blo.tU, blo.tV, tQ, pe, pq, pb, sp, orig, skip)
+        kw = dict(invq=invq, ls=blo.ls, omp=omp) if pinv else {}
+    else:
+        S, W = blo.tU.shape[2], 64
+        wb = torch.clamp(pb, max=S - W).long()
+        idx = wb[:, None] + torch.arange(W, device=dev)[None]
+        rows = lambda n: torch.arange(n, device=dev)[None, :, None]
+        e, q = pe.long()[:, None, None], pq.long()[:, None, None]
+        cut = lambda t, i, n: t[i, rows(n), idx[:, None, :]].contiguous()
+        ids = torch.arange(len(pe), dtype=torch.int32, device=dev)
+        args = (cut(blo.tU, e, 20 * R), cut(blo.tV, e, 20 * R),
+                cut(tQ, q, tQ.shape[1]), ids, ids,
+                (pb - wb).to(torch.int32), torch.clamp(sp, max=W), orig,
+                skip)
+        kw = (dict(invq=invq[pq.long()[:, None], idx].contiguous(),
+                   ls=blo.ls[pe.long()[:, None], idx].contiguous(), omp=omp)
+              if pinv else {})
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, width, counters=True,
+                        per_pair=shape == "per_pair", **kw)
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    for key in ("cluster_launches", "past8_launches", f"{shape}_launches",
+                "mixture_launches" if mix else "k20_launches"):
+        assert after[key] == before[key] + 1, key
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
+                                             counters=True, **kw))
+
+
+@pytest.mark.requires_cuda
+def test_refused_cluster_launch_raises(monkeypatch):
+    """A cluster launch the runtime refuses (its code, here
+    cudaErrorLaunchOutOfResources from a stand-in for the library's
+    launch) raises, counts nothing and runs nothing in its place; and the
+    library itself refuses a cluster of more than 8 CTAs (72 rates)."""
+    dev = _card()
+    eng, tQ, pe, pq, pb, sp = _state(dev, 128, seed=7, model="LG+G16{0.8}",
+                                     n_taxa=16, data_seed=21, alphabet=AA)
+    blo = eng.blo
+    real = bk.blo_newton.build(False)
+
+    class Refusing:
+        blo_newton_team_geometry = real.blo_newton_team_geometry
+        blo_newton_error_string = real.blo_newton_error_string
+
+        @staticmethod
+        def blo_newton_launch(*args):
+            return 701               # cudaErrorLaunchOutOfResources
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(bk.blo_newton, "build", lambda has_pinv=False:
+                        Refusing)
+    monkeypatch.setattr(bk, "blo_newton_plain", no_plain)
+    before = bk.blo_newton.counts()
+    with pytest.raises(RuntimeError, match="launch failed.*701"):
+        bk.blo_newton(bk._kernel_scalars(eng.consts, torch.float32),
+                      blo.tU, blo.tV, tQ, pe, pq, pb, sp,
+                      blo.lengths[pe.long()], torch.zeros(len(pe),
+                                                          device=dev), 128)
+    assert bk.blo_newton.counts() == before
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="unsupported"):
+        bk.blo_newton.team_geometry(20, 72, 128)
+
+
+@pytest.mark.requires_cuda
+def test_engine_mixture32_and_past_the_cap_on_card(monkeypatch):
+    """A 32-component matrix mixture places on the card through the
+    cluster (4 CTAs a pair), fused step and exact path, never the torch
+    Newton; LG+G65, one rate past the kernel's cap, takes the torch twin
+    on the card (as the JAX package's XLA twin), counted, never the
+    kernel. Placements agree with the port's f64 CPU engine (best logl
+    within 1e-5 relative, top edge up to ties) on >= 90% of queries."""
+    from chip_smoke import register_mixture
+    from epa_ng_tpu_torch.models import aa_matrices
+    dev = _card()
+    register_mixture(32, "SMOKEMIX32M")
+    try:
+        for model, kernel, (taxa, sites, reads) in (
+                ("SMOKEMIX32M+G32{0.9}", True, (10, 64, 8)),
+                ("LG+G65{0.8}", False, (8, 48, 6))):
+            tree, ref, qry = synth_dataset(n_taxa=taxa, sites=sites,
+                                           n_queries=reads, seed=13,
+                                           alphabet=AA)
+            cpu = PlacementEngine(tree, ref, Model.from_string(model),
+                                  Options(), device="cpu")
+            want = cpu.place_chunk(qry) + cpu._place_chunk_exact(
+                cpu.encode_msa(qry), 0)
+            eng = PlacementEngine(tree, ref, Model.from_string(model),
+                                  Options(compute_dtype="f32"), device=dev)
+            before = bk.blo_newton.counts()
+            got = eng.place_chunk(qry)
+            got += eng._place_chunk_exact(eng.encode_msa(qry), 0)
+            after = bk.blo_newton.counts()
+            twin = eng.newton_work.totals()["twin_launches"]
+            launched = after["cluster_launches"] - before["cluster_launches"]
+            if kernel:
+                assert launched > 0 and twin == 0
+                assert (after["launches"] - before["launches"] == launched
+                        == after["mixture_launches"]
+                        - before["mixture_launches"])
+            else:
+                assert after["launches"] == before["launches"] and twin > 0
+            close, agree = _agreement(want, got)
+            assert close >= 0.9 and agree >= 0.9
+    finally:
+        aa_matrices.MIXTURES.pop("SMOKEMIX32M", None)
 
 
 def _agreement(want, got):

@@ -334,15 +334,16 @@ def test_unported_flags_exit_nonzero(tmp_path, flag, capsys):
     ("LG+G4", False), ("LG+I+G4", False), ("BIN+G4", False),
     ("GTGTR4+G4", False), ("HKY+I{0.2}+G4", False), ("GTR+IC+G4", False),
     ("LG+IC+G4", False), ("mixture", False), ("GTR+G16", False),
-    ("GTR+I+R10", False), ("LG+G16", False), ("LG+G44", True),
-    ("GTR+G313", True)])
+    ("GTR+I+R10", False), ("LG+G16", False), ("LG+G44", False),
+    ("GTR+G313", False)])
 def test_cuda_refuses_unported_models(model, refused, mixture_both):
     """On the card DNA and protein run, single-matrix with or without +I
     (fixed or empirical p-inv), and protein matrix mixtures, up to the
-    kernel's rate cap (16 gamma and 10 free rates run; 44 at 20 states and
-    313 at 4 are one past it); binary and genotype models run too, on the
-    torch twin, as does ``--raxml-blo`` past the cap. The check needs no
-    card (it refuses before any tensor is made)."""
+    kernel's rate cap (16 gamma and 10 free rates run, and 44 at 20
+    states); past it (313 at 4 states) the torch twin runs, as the JAX
+    package runs its XLA twin there, and so do binary and genotype models
+    and ``--raxml-blo``: no model the JAX package places is refused. The
+    check needs no card (it refuses before any tensor is made)."""
     model = mixture_both if model == "mixture" else model
     if refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -376,15 +377,14 @@ def test_pallas_on_needs_the_card():
     ("cuda", torch.float64, "auto", 4, True, False, 4),
     ("cpu", torch.float32, "auto", 4, True, False, 4),
     ("cuda", torch.float32, "auto", 9, True, True, 4),
-    ("cuda", torch.float32, "auto", 313, True, NotImplementedError, 4),
+    ("cuda", torch.float32, "auto", 313, True, False, 4),
     ("cuda", torch.float32, "auto", 4, False, False, 4),
     ("cpu", torch.float32, "on", 4, True, ValueError, 4),
     ("cuda", torch.float32, "auto", 4, True, True, 20),
     ("cuda", torch.float32, "auto", 4, True, True, "mixture"),
     ("cuda", torch.float32, "auto", 9, True, True, 20),
-    ("cuda", torch.float32, "auto", 44, True, NotImplementedError, 20),
-    ("cuda", torch.float32, "auto", 28, True, NotImplementedError,
-     "mixture"),
+    ("cuda", torch.float32, "auto", 44, True, True, 20),
+    ("cuda", torch.float32, "auto", 28, True, True, "mixture"),
     ("cpu", torch.float32, "auto", 4, True, False, "mixture"),
     ("cuda", torch.float32, "auto", 4, True, False, 2),
     ("cuda", torch.float32, "auto", 4, True, False, 10),
@@ -395,12 +395,12 @@ def test_kernel_routing_rule(device, dtype, pallas, rates, sliding, expect,
     """On a cuda device in f32 the Newton stage takes the kernel at every
     window width, or raises "not yet ported"; ``--pallas off``, f64 and the
     CPU take the torch twin, and so do what the JAX package runs on its
-    XLA twin: 2 and 10 states and non-sliding BLO (at any rate count),
-    where ``--pallas on`` is refused. The kernel takes 4 and 20 states and
-    20-state matrix mixtures, 9 rate categories among them, up to its cap
-    (312 at 4 states, 43 at 20, 27 for a mixture; one more raises). The
-    rule needs no card: it reads the engine's device, dtype, options and
-    eigen constants."""
+    XLA twin: 2 and 10 states, non-sliding BLO (at any rate count) and
+    rate counts past the kernel's cap, where ``--pallas on`` is refused.
+    The kernel takes 4 and 20 states and 20-state matrix mixtures, 9 rate
+    categories among them, up to its cap (312 at 4 states, 64 at 20, a
+    single matrix or a mixture). The rule needs no card: it reads the
+    engine's device, dtype, options and eigen constants."""
     from types import SimpleNamespace
 
     from epa_ng_tpu_torch.ops import newton as tnewton
