@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
    torch.cuda.get_device_name;
 2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc, its two
    libraries (without and with the +I term) side by side, and print each
-   instantiation's registers and spill;
+   instantiation's registers and spill (the K = 20 cluster's and the
+   K = 4 runtime-R shared-home ones must not spill, the latter within
+   168 registers: 3 CTAs an SM);
 3. hold the kernel against its plain PyTorch version on the card, in f32
    and in f64, for both call shapes (blocked: full stores + per-pair
    windows, with the sumtable in shared memory at the main path's width
@@ -27,8 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
    path's pairs, the four-component mixture on the mixture path's, and
    LG+I{0.2}+G4{0.8} on protein data with 20% invariant columns;
 3f-3h. the same at 16 rate categories: GTR+G16 and GTR+I{0.2}+G16 (the K = 4
-   runtime-R instantiation) on the DNA and +I pairs, LG+G16{0.8} (the
-   K = 20 cluster: two CTAs a pair, 8 rates each) on the protein pairs;
+   runtime-R instantiation, whose pairs must also stay on the f64 plain
+   version: 0 pairs off it in every shape and home) on the DNA and +I
+   pairs, LG+G16{0.8} (the K = 20 cluster: two CTAs a pair, 8 rates
+   each) on the protein pairs;
 3i-3k. the K = 20 cluster once more: LG+I{0.2}+G16{0.8} on the protein +I
    pairs, and 16- and 32-component LG-derived mixtures (+G16{0.9},
    +G32{0.9}: clusters of 2 and 4 CTAs) on the mixture pairs, 2048 each;
@@ -55,7 +59,9 @@ Phases (any failure exits non-zero and prints no result line):
    model, under +IC on data with invariant columns, under LG+G4, the
    mixture and LG+IC+G4 (all on seed 5), and past 8 rates under
    GTR+I{0.2}+R10 on data with invariant columns, under LG+G16 and under
-   the 32-component mixture (a cluster of 4 CTAs);
+   the 32-component mixture (a cluster of 4 CTAs); then GTR+G16 under the
+   exact budgets, ``-G 0.1`` and ``--baseball-heur`` (top-k up to E, the
+   budget not halved), through the K = 4 runtime-R instantiation only;
 6. the DNA, +I, protein, mixture, GTR+G16 and LG+G16 main paths once more
    under torch.profiler (device time by kernel, busy share);
 7. the rest of the one-card CLI, each path with the counts reset just
@@ -923,6 +929,54 @@ def small_reference(device, model=MODEL, invariant_share=0.0, name="small",
               f"rel diff {ag['max_rel_best_logl']:.3g}")
     out["launches"] = blo_newton.counts()
     out["twin_launches"] = twin
+    return out
+
+
+EXACT_BUDGETS = {"fixed": ("-G", "0.1"), "baseball": ("--baseball-heur",)}
+
+
+def exact_budgets(device, heuristics=EXACT_BUDGETS, model=G16_MODEL,
+                  size=(64, 200, 256), seed=5):
+    """Phase 5's exact budgets: ``-G`` (fixed) and ``--baseball-heur`` give
+    the fused step exact budgets (ceil(G E) and 40 candidates a query,
+    not halved), so under ``model`` (GTR+G16) the K = 4 runtime-R
+    instantiation runs at top-k up to E. Each heuristic's run on
+    ``device`` is held against the port's f64 CPU run of the same files
+    (``size`` = taxa, sites, queries; ``seed``): top edge up to ties on
+    >= 99%, best logl within 1e-5 relative; on the card only kernel
+    launches past 8 rates, and no torch-twin call. Returns per heuristic
+    the agreement, the launches and the twin's calls."""
+    from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
+    outdir = os.path.join(OUT, "exact_budgets")
+    n_taxa, sites, n_queries = size
+    _, paths = make_data(n_taxa, sites, n_queries, seed,
+                         os.path.join(outdir, "data"))
+    out = {}
+    for name, flags in heuristics.items():
+        runs = {}
+        for dev in (device, "cpu"):
+            d = os.path.join(outdir, f"{name}_{dev}")
+            blo_newton.reset_counts()
+            st, _ = run_cli(paths, d, dev, chunk=256, extra=flags,
+                            model=model)
+            if dev == device:
+                counts, twin = blo_newton.counts(), st["twin_launches"]
+            runs[dev] = read_jplace(os.path.join(d, "epa_result.jplace"))
+        a, b = runs[device], runs["cpu"]
+        check(a.keys() == b.keys() and len(a) == n_queries,
+              f"exact budgets {name}: a run lost queries")
+        if device == "cuda":
+            check(counts["launches"] > 0 and twin == 0
+                  and counts["past8_launches"] == counts["launches"],
+                  f"exact budgets {name}: launches {counts}, twin {twin}")
+        ag = agreement(a, b, 1e-5)
+        check(ag["top_edge_up_to_ties"] >= 0.99,
+              f"exact budgets {name}: top placements agree (up to ties) "
+              f"on {ag['top_edge_up_to_ties']:.3f} < 0.99")
+        check(ag["max_rel_best_logl"] <= 1e-5, f"exact budgets {name}: "
+              f"best logl rel diff {ag['max_rel_best_logl']:.3g}")
+        out[name] = dict(agreement=ag, launches=counts["launches"],
+                         twin_launches=twin)
     return out
 
 
@@ -1817,6 +1871,15 @@ def main(argv=()) -> int:
         check(len(cluster) == 4 * bool(built[False]) + 2 * bool(built[True])
               and all(p.endswith(" 0 B spill") for p in cluster),
               f"the cluster instantiations spill or are missing: {cluster}")
+        # the K = 4 runtime-R instantiations in the shared home (past 8
+        # rates) free of spills within 168 registers, 3 CTAs an SM
+        r0 = [p for p in ptxas if p.startswith("R0 shared")]
+        check(len(r0) == bool(built[False]) + bool(built[True])
+              and all(p.endswith(" 0 B spill")
+                      and int(p.split(": ")[1].split()[0]) <= 168
+                      for p in r0),
+              f"the K = 4 runtime-R instantiations spill or pass 168 "
+              f"registers: {r0}")
         done("2")
 
         # data (set-up)
@@ -1857,6 +1920,13 @@ def main(argv=()) -> int:
         # instantiation without and with +I, the K = 20 rate walk)
         gpar = parity_phase("R=16 parity", data, G16_MODEL)
         gppar = parity_phase("R=16 +I parity", pdata, G16_PINV_MODEL)
+        # the runtime-R instantiation's site-blocked loops keep every pair
+        # on the f64 plain version's optimum
+        for tag, p in (("R=16", gpar), ("R=16 +I", gppar)):
+            off = {k: r["pairs_off_f64"] for k, r in p.items()
+                   if "pairs_off_f64" in r}
+            check(not any(off.values()),
+                  f"{tag}: pairs off the f64 plain version {off}")
         agpar = parity_phase("K=20 R=16 parity", adata, AA_G16_MODEL)
         done("3")
         # phases 3i-3k: the cluster with +I and for mixtures past 8
@@ -1975,6 +2045,9 @@ def main(argv=()) -> int:
               == m32["launches"],
               f"32-component mixture small reference: launches {m32}")
         done("5 mixture R=32")
+        budgets = exact_budgets("cuda")
+        print("exact budgets GTR+G16: " + json.dumps(budgets), flush=True)
+        done("5 exact budgets")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -2136,6 +2209,8 @@ def main(argv=()) -> int:
                 "blo_newton R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
                 gstats["past8_launches"], gpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_exact_budgets={k: v["launches"]
+                                        for k, v in budgets.items()},
                 instantiation="GTR+G16: K = 4, the runtime-R instantiation, "
                 "R = 16", **team(gpar), parity={**shapes(gpar), **tol}),
             kernel_entry(

@@ -76,8 +76,9 @@
 //     loads and their address arithmetic (rows of a runtime stride were
 //     1-4% slower: PERF.md). Each thread reads and writes only
 //     its own sites, so T needs no barrier. Past max_shared_sites T goes
-//     to a device-memory scratch, one slice per CTA, where the rate loops
-//     stay rolled (unrolled, their float4 loads in flight spilled);
+//     to a device-memory scratch, one slice per CTA, where the R <= 8
+//     rate loops stay rolled (unrolled, their float4 loads in flight
+//     spilled);
 //   * persistent CTAs: the grid is what the SMs hold at once, the tables
 //     are loaded once per CTA, and a CTA that finishes a pair takes the
 //     next untaken one from an atomic counter (a pair's work runs up to 3x
@@ -105,11 +106,51 @@
 //     MAX_R = 8: 16 DNA instantiations a library (R 1-8 x home). Past 8
 //     rates (GTR+G16, +R10) one runtime-R instantiation (RC = 0) a home
 //     takes any R up to the cap (ops/blo_kernel.py::max_rates, 312): its
-//     rate loops stay rolled, its tables take 24 R + 32 floats (416 at
-//     R = 16), and each lane fills ceil(RK / 32) entries of its warp's
-//     exponential row. At R = 16 T is 68 floats (272 B) a site, with or
-//     without +I, so 832 sites fit in shared memory: the headline's
-//     windows of up to 512 sites stay in the shared home.
+//     tables take 24 R + 32 floats (416 at R = 16), and each lane fills
+//     ceil(RK / 32) entries of its warp's exponential row. At R = 16 T is
+//     68 floats (272 B) a site, with or without +I, so 832 sites fit in
+//     shared memory: the headline's windows of up to 512 sites stay in
+//     the shared home.
+//
+// DNA past 8 rate categories (RC = 0). Rolled over R at run time, the
+// rate loops sat inside the site loop: every (site, rate) of a Newton
+// evaluation loaded T, e, x and x^2 (4 LDS.128, 30 instructions), every
+// one of a build the wA row, A, piA and both exponentials (14 LDS.128,
+// 147 instructions), and a thread worked one site's chain at a time
+// (K1 GTR+G16 at 11.9% of bound; PERF.md). So:
+//   * site-blocked loops: a thread takes its sites w0, w0 + 128, ... in
+//     blocks of SB = 2 rows (both of its sites at the main path's width;
+//     one where the warp's first lane has only one in the span, so no
+//     lane diverges; a lane past the span computes on entries it never
+//     adds, T holding the width rounded up to 32 sites, dna_t_sites, and
+//     a build clamps its window reads to the span), keeps each row's sums
+//     in registers and walks the rates outer: a Newton evaluation or a
+//     score in unrolled chunks of CH = 4 rates (then the rest one at a
+//     time) loads a rate's e, x, x^2 once for the block's rows, and a
+//     build (rates rolled) its wA row and two exponentials once, with A
+//     and piA in registers for the whole build. Each site still adds its
+//     rates in order and the thread its sites in order, so the plain
+//     version did not change. At two rows: 2.5 LDS.128 and ~23
+//     instructions per (site, rate) in a Newton evaluation, 3 and ~130 in
+//     a build. Four-row blocks took 168 registers and ran no faster,
+//     two-rate chunks and a build unrolled by two rates slower (PERF.md);
+//   * __launch_bounds__(128, 3) in the shared home: at most 168 registers
+//     a thread (ptxas takes fewer, without spill), so the 3 CTAs an SM
+//     that shared memory holds at width 256 (73,472 B each at R = 16)
+//     stay resident; the device home takes what it needs;
+//   * R 1-8 keep their unrolled per-site loops: the blocked ones, given
+//     to them, ran 0.918 / 0.966 / 0.973 / 0.961 / 0.981 / 1.023 / 1.097
+//     / 1.151x as fast at R = 1-8 (+I at R = 4 0.953x; 4096 DNA headline
+//     pairs, kernel_ab.py in turns; PERF.md), more than 3% slower at
+//     R = 1, 2, 4 and with +I;
+//   * the pairs come in the caller's order. Sorting each launch's pairs
+//     by (edge, begin), so that the pairs in flight share their edges'
+//     windows in L2 (528 B a site at R = 16; ~400 pairs in flight, ~52 MB
+//     of distinct windows against the 50 MB L2), took 4096 pairs four to
+//     an edge from 1.2819 to 1.0600 ms, but the sort (a torch argsort a
+//     launch) cost more than it saved on the main path's own launches
+//     (2.49 live pairs an edge; 6.9020 ms against 6.7892 without it), so
+//     it went (PERF.md).
 //
 // Protein (K = 20, TeamCtx, blo_newton_team_kernel). A warp per pair held
 // four pairs of T (4 x 40 KB at RK = 80, width 128) in one block per SM:
@@ -226,6 +267,7 @@
 #include <algorithm>
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #ifndef BLO_HAS_PINV
 #define BLO_HAS_PINV 0
@@ -302,6 +344,13 @@ __host__ __device__ constexpr int dna_t_stride(int rows) {
   return padded % 8 == 0 ? padded + 4 : padded;
 }
 
+// K = 4: the sites T holds, the width rounded up to a warp's 32: the
+// runtime-R loops give every lane of a warp work while its first lane is
+// in the span, so they write T up to the span rounded up to 32 sites
+__host__ __device__ inline int dna_t_sites(int width) {
+  return round32(width);
+}
+
 // Shared memory of a CTA, in floats, each region on a 32-float boundary
 // (ops/blo_kernel.py::kernel_geometry must match), for R rate slots (at
 // K = 20 past TEAM_WARPS rates a cluster CTA's slice_rates):
@@ -314,8 +363,9 @@ __host__ __device__ constexpr int dna_t_stride(int rows) {
 //            per chunk parity
 //   slots    [2][2][warps] warp sums, one buffer per reduction parity; at
 //            K = 4 then [2] ints, the next pair's index, and max |x_rk|
-//   T        [RK (+1)][width] at K = 20, [width][dna_t_stride(RK (+1))]
-//            at K = 4                     (in t_scratch instead: GLOBAL_T)
+//   T        [RK (+1)][width] at K = 20, [dna_t_sites(width)]
+//            [dna_t_stride(RK (+1))] at K = 4 (in t_scratch instead:
+//            GLOBAL_T, one slice of that size per CTA)
 struct TeamLayout {
   int exps, erow, red, slots, t, t_end;
   __host__ __device__ TeamLayout(int ns, int R, bool mix, bool pinv,
@@ -328,7 +378,8 @@ struct TeamLayout {
     slots = red + (ns == K ? 0 : 2 * 3 * RED_UNITS);
     t = slots + round32(2 * 2 * warps + (ns == K ? 3 : 0));
     const int rows = rk + (pinv ? 1 : 0);
-    t_end = t + round32((ns == K ? dna_t_stride(rows) : rows) * width);
+    t_end = t + round32(ns == K ? dna_t_stride(rows) * dna_t_sites(width)
+                                : rows * width);
   }
 };
 
@@ -442,13 +493,13 @@ struct DnaTeamCtx {
     }
   }
 
-  // f(r) for the rates r = 0 .. R-1 in order: unrolled with T in shared
+  // f(r) for the rates r = 0 .. RC-1 in order: unrolled with T in shared
   // memory; one at a time with T in device memory, where the unrolled
-  // rates' float4 loads in flight take every register and spill, and at a
-  // runtime rate count
+  // rates' float4 loads in flight take every register and spill (a
+  // runtime rate count takes the site-blocked loops below instead)
   template <class F>
   __device__ __forceinline__ void for_rates(F f) const {
-    if constexpr (GLOBAL_T || RUNTIME_R) {
+    if constexpr (GLOBAL_T) {
 #pragma unroll 1
       for (int r = 0; r < rates(); ++r) f(r);
     } else {
@@ -498,11 +549,11 @@ struct DnaTeamCtx {
     }
   }
 
-  // (T[r*K+k])_k = sum_i piA[i][k] * hA[i] * hB[i] (sequential in i), each
-  // row of piA one float4
-  __device__ __forceinline__ float4 contract(const float* hA,
-                                             const float* hB) const {
-    const float4* p = reinterpret_cast<const float4*>(piA);
+  // (T[r*K+k])_k = sum_i p[i][k] * hA[i] * hB[i] (sequential in i), each
+  // row of p (piA) one float4
+  __device__ __forceinline__ static float4 contract(const float4* p,
+                                                    const float* hA,
+                                                    const float* hB) {
     float4 c = p[0];
     float h = hA[0] * hB[0];
     float4 acc = make_float4(c.x * h, c.y * h, c.z * h, c.w * h);
@@ -538,50 +589,235 @@ struct DnaTeamCtx {
     }
   }
 
-  // rate r's four sums at site s: contract(wA-bt(a e^{x la}), A-bt(b
-  // e^{x lb})) * o, with a and b the rate's four rows (row stride S) and
-  // ea, eb its exponentials (the zero lane's not applied)
-  __device__ __forceinline__ float4 build_rate(const float* a,
-                                               const float* b,
-                                               const float* o, int s,
-                                               int r, float4 ea,
-                                               float4 eb) const {
-    float u[K], v[K], hU[K], hV[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      u[k] = a[k * S + s];
-      v[k] = b[k * S + s];
-    }
+  // one rate's four sums at one site: contract(wr-bt(u e^{x la}), a-bt(v
+  // e^{x lb})) * o with p, for the rate's wA rows wr, A's rows a and
+  // piA's rows p, the site's window entries u, v and o, and the rate's
+  // exponentials ea, eb (the zero lane's not applied)
+  __device__ __forceinline__ static float4 sums(const float4* wr,
+                                                const float4* a,
+                                                const float4* p, float* u,
+                                                float* v, const float* o,
+                                                float4 ea, float4 eb) {
+    float hU[K], hV[K];
     u[0] *= ea.x;
     u[1] *= ea.y;
     u[2] *= ea.z;
     v[0] *= eb.x;
     v[1] *= eb.y;
     v[2] *= eb.z;
-    back(reinterpret_cast<const float4*>(wA) + r * K, u, hU);
-    back(reinterpret_cast<const float4*>(A), v, hV);
-    const float4 c = contract(hU, hV);
+    back(wr, u, hU);
+    back(a, v, hV);
+    const float4 c = contract(p, hU, hV);
     return make_float4(c.x * o[0], c.y * o[1], c.z * o[2], c.w * o[3]);
+  }
+
+  // rate r's four sums at site s, the tables read from shared memory, with
+  // a and b the rate's four rows (row stride S)
+  __device__ __forceinline__ float4 build_rate(const float* a,
+                                               const float* b,
+                                               const float* o, int s,
+                                               int r, float4 ea,
+                                               float4 eb) const {
+    float u[K], v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u[k] = a[k * S + s];
+      v[k] = b[k * S + s];
+    }
+    return sums(reinterpret_cast<const float4*>(wA) + r * K,
+                reinterpret_cast<const float4*>(A),
+                reinterpret_cast<const float4*>(piA), u, v, o, ea, eb);
+  }
+
+  // ---- RC = 0 (a runtime rate count): site-blocked loops. A thread takes
+  // its sites w0, w0 + DNA_TEAM, ... in blocks of up to SB rows, keeps
+  // each row's sums in registers and walks the rates outer, so a rate's
+  // exponentials, x_rk and x_rk^2 (a build's wA row and exponentials) load
+  // once for the block's rows; Newton evaluations and scores in unrolled
+  // chunks of CH rates and the remainder one at a time. Each site still
+  // adds its rates in order, and the thread its sites in order.
+  static constexpr int SB = 2;
+  static constexpr int CH = 4;
+
+  // the rows of the block at w0 that this warp holds in the span: its
+  // first site's, the same in every lane (so no lane diverges); a lane
+  // past the span in the last row computes on entries it never adds (T
+  // up to the span rounded up to 32 sites, which dna_t_sites makes T
+  // hold whatever the width) and a build clamps its window reads to the
+  // span
+  __device__ __forceinline__ int rows(int w0) const {
+    const int n = (span - (w0 - lane) + DNA_TEAM - 1) / DNA_TEAM;
+    return n < SB ? n : SB;
+  }
+
+  // f(integral_constant N) for N = rows(w0), 1 or SB
+  static_assert(SB == 2, "with_rows takes blocks of one or two rows");
+  template <class F>
+  __device__ __forceinline__ void with_rows(int w0, F f) const {
+    if (rows(w0) == 1) {
+      f(std::integral_constant<int, 1>{});
+    } else {
+      f(std::integral_constant<int, SB>{});
+    }
+  }
+
+  // g(r) for r = 0 .. R-1 in order: unrolled chunks of CH, then the rest
+  template <class G>
+  __device__ __forceinline__ void rate_chunks(G g) const {
+    const int R = nr;
+    int r = 0;
+#pragma unroll 1
+    for (; r + CH <= R; r += CH) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) g(r + c);
+    }
+#pragma unroll 1
+    for (; r < R; ++r) g(r);
+  }
+
+  // the float4s between a thread's rows of T
+  __device__ __forceinline__ int row_stride() const {
+    return ts() / 4 * DNA_TEAM;
+  }
+
+  // the pendant (t1) or distal (t2) sumtable, site-blocked: t1 reads tU
+  // (exponentials EA) and tV (EB) and multiplies by tQ; t2 reads tU and
+  // the query tip tQ (EB) and multiplies by tV; A and piA in registers for
+  // the whole build, a rate's wA row and exponentials once per block
+  template <bool T2>
+  __device__ void build_blocked(const float4* EA, const float4* EB) {
+    float4 a4[K], p4[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      a4[i] = reinterpret_cast<const float4*>(A)[i];
+      p4[i] = reinterpret_cast<const float4*>(piA)[i];
+    }
+    const float4* W4 = reinterpret_cast<const float4*>(wA);
+    const int stride = row_stride();
+    for (int w0 = tid; w0 - lane < span; w0 += SB * DNA_TEAM) {
+      with_rows(w0, [&](auto n) {
+        constexpr int N = decltype(n)::value;
+        int s[N];
+        float q[N][K];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          s[i] = begin + min(w0 + i * DNA_TEAM, span - 1);
+#pragma unroll
+          for (int k = 0; k < K; ++k) q[i][k] = tq[k * S + s[i]];
+        }
+        float4* t = site(w0);
+#pragma unroll 1
+        for (int r = 0; r < nr; ++r) {
+          const float4 ea = EA[r], eb = EB[r];
+          const float4 wr[K] = {W4[r * K], W4[r * K + 1], W4[r * K + 2],
+                                W4[r * K + 3]};
+          const float* a = tu + r * K * S;
+          const float* b = tv + r * K * S;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            float u[K], v[K], o[K];
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              u[k] = a[k * S + s[i]];
+              v[k] = T2 ? q[i][k] : b[k * S + s[i]];
+              o[k] = T2 ? b[k * S + s[i]] : q[i][k];
+            }
+            t[i * stride + r] = sums(wr, a4, p4, u, v, o, ea, eb);
+          }
+        }
+      });
+    }
+  }
+
+  // a Newton evaluation's per-thread sums d1, d2 (d[0], d[1]) at the
+  // exponentials E, site-blocked
+  __device__ __forceinline__ void newton_blocked(const float4* E,
+                                                 float (&d)[2]) const {
+    const float4* X = reinterpret_cast<const float4*>(xrk);
+    const float4* X2 = reinterpret_cast<const float4*>(x2);
+    const int stride = row_stride();
+    for (int w0 = tid; w0 - lane < span; w0 += SB * DNA_TEAM) {
+      with_rows(w0, [&](auto n) {
+        constexpr int N = decltype(n)::value;
+        const float4* t = site(w0);
+        float f0[N], f1[N], f2[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) f0[i] = f1[i] = f2[i] = 0.0f;
+        rate_chunks([&](int r) {
+          const float4 e = E[r], xr = X[r], xx = X2[r];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float4 tr = t[i * stride + r];
+            lane_terms(tr.x, e.x, xr.x, xx.x, f0[i], f1[i], f2[i]);
+            lane_terms(tr.y, e.y, xr.y, xx.y, f0[i], f1[i], f2[i]);
+            lane_terms(tr.z, e.z, xr.z, xx.z, f0[i], f1[i], f2[i]);
+            f0[i] += tr.w;
+          }
+        });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int w = w0 + i * DNA_TEAM;
+          if (w < span) site_derivs(f0[i], f1[i], f2[i], w, d);
+        }
+      });
+    }
+  }
+
+  // a score's per-thread sum of log site likelihoods at the exponentials
+  // E, site-blocked
+  __device__ __forceinline__ float score_blocked(const float4* E) const {
+    const int stride = row_stride();
+    float acc = 0.0f;
+    for (int w0 = tid; w0 - lane < span; w0 += SB * DNA_TEAM) {
+      with_rows(w0, [&](auto n) {
+        constexpr int N = decltype(n)::value;
+        const float4* t = site(w0);
+        float f[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = 0.0f;
+        rate_chunks([&](int r) {
+          const float4 e = E[r];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float4 tr = t[i * stride + r];
+            f[i] += tr.x * e.x;
+            f[i] += tr.y * e.y;
+            f[i] += tr.z * e.z;
+            f[i] += tr.w;
+          }
+        });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int w = w0 + i * DNA_TEAM;
+          if (w < span) acc += logf(fmaxf(site_g(f[i], w), FLT_MIN));
+        }
+      });
+    }
+    return acc;
   }
 
   // pendant sumtable at edge lengths (lp, ld): T1 of _blo_compute.build_T
   __device__ void build_t1(float lp, float ld) {
     const float4* EU = exps(lp, E0);
     const float4* EV = exps(ld, E1);
-    for (int w = tid; w < span; w += DNA_TEAM) {
-      const int s = begin + w;
-      float q[K];
+    if constexpr (RUNTIME_R) {
+      build_blocked<false>(EU, EV);
+    } else {
+      for (int w = tid; w < span; w += DNA_TEAM) {
+        const int s = begin + w;
+        float q[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) q[k] = tq[k * S + s];
-      float4* t = site(w);
-      for_rates([&](int r) {
-        // a barrier for the compiler only, at every other rate: it keeps
-        // ptxas from hoisting all R rates' window loads to the head of the
-        // site, which takes 150-165 registers (PERF.md)
-        if (r % 2 == 0) asm volatile("" ::: "memory");
-        t[r] = build_rate(tu + r * K * S, tv + r * K * S, q, s, r, EU[r],
-                          EV[r]);
-      });
+        for (int k = 0; k < K; ++k) q[k] = tq[k * S + s];
+        float4* t = site(w);
+        for_rates([&](int r) {
+          // a barrier for the compiler only, at every other rate: it keeps
+          // ptxas from hoisting all R rates' window loads to the head of the
+          // site, which takes 150-165 registers (PERF.md)
+          if (r % 2 == 0) asm volatile("" ::: "memory");
+          t[r] = build_rate(tu + r * K * S, tv + r * K * S, q, s, r, EU[r],
+                            EV[r]);
+        });
+      }
     }
   }
 
@@ -589,16 +825,20 @@ struct DnaTeamCtx {
   __device__ void build_t2(float lprox, float lpend) {
     const float4* EU = exps(lprox, E0);
     const float4* EQ = exps(lpend, E1);
-    for (int w = tid; w < span; w += DNA_TEAM) {
-      const int s = begin + w;
-      float4* t = site(w);
-      for_rates([&](int r) {
-        if (r % 2 == 0) asm volatile("" ::: "memory");
-        float o[K];
+    if constexpr (RUNTIME_R) {
+      build_blocked<true>(EU, EQ);
+    } else {
+      for (int w = tid; w < span; w += DNA_TEAM) {
+        const int s = begin + w;
+        float4* t = site(w);
+        for_rates([&](int r) {
+          if (r % 2 == 0) asm volatile("" ::: "memory");
+          float o[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) o[k] = tv[(r * K + k) * S + s];
-        t[r] = build_rate(tu + r * K * S, tq, o, s, r, EU[r], EQ[r]);
-      });
+          for (int k = 0; k < K; ++k) o[k] = tv[(r * K + k) * S + s];
+          t[r] = build_rate(tu + r * K * S, tq, o, s, r, EU[r], EQ[r]);
+        });
+      }
     }
   }
 
@@ -607,20 +847,40 @@ struct DnaTeamCtx {
   __device__ float score(float lq) {
     const float4* E = exps(lq, E0);
     float acc[1] = {0.0f};
-    for (int w = tid; w < span; w += DNA_TEAM) {
-      const float4* t = site(w);
-      float f = 0.0f;
-      for_rates([&](int r) {
-        const float4 tr = t[r], e = E[r];
-        f += tr.x * e.x;
-        f += tr.y * e.y;
-        f += tr.z * e.z;
-        f += tr.w;
-      });
-      acc[0] += logf(fmaxf(site_g(f, w), FLT_MIN));
+    if constexpr (RUNTIME_R) {
+      acc[0] = score_blocked(E);
+    } else {
+      for (int w = tid; w < span; w += DNA_TEAM) {
+        const float4* t = site(w);
+        float f = 0.0f;
+        for_rates([&](int r) {
+          const float4 tr = t[r], e = E[r];
+          f += tr.x * e.x;
+          f += tr.y * e.y;
+          f += tr.z * e.z;
+          f += tr.w;
+        });
+        acc[0] += logf(fmaxf(site_g(f, w), FLT_MIN));
+      }
     }
     team_sum<DNA_WARPS>(acc, slots, sbuf, tid);
     return acc[0];
+  }
+
+  // a site's terms of d1 and d2 from its eigen-sums f0, f1, f2 (+I: g =
+  // omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2, in _blo_compute's order
+  // of operations)
+  __device__ __forceinline__ void site_derivs(float f0, float f1, float f2,
+                                              int w, float (&d)[2]) const {
+    const float g = fmaxf(site_g(f0, w), FLT_MIN);
+    const float inv_g = 1.0f / g;
+    if constexpr (HAS_PINV) {
+      f1 = omp * f1;
+      f2 = omp * f2;
+    }
+    const float r1 = f1 * inv_g;
+    d[0] += r1;
+    d[1] += f2 * inv_g - r1 * r1;
   }
 
   // a non-zero lane's terms of f0, f1, f2 (x2 = x * x)
@@ -638,8 +898,6 @@ struct DnaTeamCtx {
   // adds the iterations it executes to ``iters``
   __device__ float newton(float xmin, float xmax, float xtol, float guess,
                           int& iters) {
-    const float4* X = reinterpret_cast<const float4*>(xrk);
-    const float4* X2 = reinterpret_cast<const float4*>(x2);
     float x = fminf(fmaxf(guess, xmin), xmax);
     float x_hi = x;      // the last point evaluated soundly with d1 < 0
     float slid = 0.0f;
@@ -648,27 +906,23 @@ struct DnaTeamCtx {
       ++iters;
       const float4* E = exps(x, E0);
       float d[2] = {0.0f, 0.0f};
-      for (int w = tid; w < span; w += DNA_TEAM) {
-        const float4* t = site(w);
-        float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-        for_rates([&](int r) {
-          const float4 tr = t[r], e = E[r], xr = X[r], xx = X2[r];
-          lane_terms(tr.x, e.x, xr.x, xx.x, f0, f1, f2);
-          lane_terms(tr.y, e.y, xr.y, xx.y, f0, f1, f2);
-          lane_terms(tr.z, e.z, xr.z, xx.z, f0, f1, f2);
-          f0 += tr.w;  // zero-eigenvalue lane: x_j == 0 exactly
-        });
-        // +I: g = omp f0 + pv, r1 = (omp f1) / g, f2 -> omp f2, in
-        // _blo_compute's order of operations
-        const float g = fmaxf(site_g(f0, w), FLT_MIN);
-        const float inv_g = 1.0f / g;
-        if constexpr (HAS_PINV) {
-          f1 = omp * f1;
-          f2 = omp * f2;
+      if constexpr (RUNTIME_R) {
+        newton_blocked(E, d);
+      } else {
+        const float4* X = reinterpret_cast<const float4*>(xrk);
+        const float4* X2 = reinterpret_cast<const float4*>(x2);
+        for (int w = tid; w < span; w += DNA_TEAM) {
+          const float4* t = site(w);
+          float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
+          for_rates([&](int r) {
+            const float4 tr = t[r], e = E[r], xr = X[r], xx = X2[r];
+            lane_terms(tr.x, e.x, xr.x, xx.x, f0, f1, f2);
+            lane_terms(tr.y, e.y, xr.y, xx.y, f0, f1, f2);
+            lane_terms(tr.z, e.z, xr.z, xx.z, f0, f1, f2);
+            f0 += tr.w;  // zero-eigenvalue lane: x_j == 0 exactly
+          });
+          site_derivs(f0, f1, f2, w, d);
         }
-        const float r1 = f1 * inv_g;
-        d[0] += r1;
-        d[1] += f2 * inv_g - r1 * r1;
       }
       team_sum<DNA_WARPS>(d, slots, sbuf, tid);
       const float d1 = d[0];
@@ -766,13 +1020,14 @@ __device__ void solve_pair(const Ctx& c_in, float orig, int max_smoothings,
 // takes pair b first (the grid is what the SMs hold at once), then the next
 // untaken pair, gridDim.x + atomicAdd(next_pair, 1), until none is left,
 // every thread of the team holding the same p. ``next_pair`` is 0 at
-// launch. GLOBAL_T: T in t_scratch, one slice per CTA. At most 128
-// registers a thread with T in shared memory below R = 7 (4 CTAs an SM);
-// R = 7-8, the runtime rate count and the device home take what they
-// need, without spill.
+// launch. GLOBAL_T: T in t_scratch, one slice per
+// CTA. At most 128 registers a thread with T in shared memory below R = 7
+// (4 CTAs an SM) and 168 at the runtime rate count (3 CTAs an SM, as many
+// as its shared memory holds at width 256 and R = 16); R = 7-8 and the
+// device home take what they need, without spill.
 template <int RC, bool GLOBAL_T, bool HAS_PINV>
 __global__ void __launch_bounds__(DNA_TEAM,
-                                  GLOBAL_T || RC == 0 || RC > 6 ? 1 : 4)
+                                  GLOBAL_T || RC > 6 ? 1 : RC == 0 ? 3 : 4)
 blo_newton_dna_kernel(const float* __restrict__ tU,
                       const float* __restrict__ tV,
                       const float* __restrict__ tQ, int S, int num_rates,
@@ -842,7 +1097,8 @@ blo_newton_dna_kernel(const float* __restrict__ tU,
   // the next pair's index, two buffers (after the warp slots)
   int* s_next = reinterpret_cast<int*>(smem + L.slots + 2 * 2 * DNA_WARPS);
   if constexpr (GLOBAL_T) {
-    c.T = t_scratch + static_cast<size_t>(blockIdx.x) * c.ts() * width;
+    c.T = t_scratch +
+          static_cast<size_t>(blockIdx.x) * c.ts() * dna_t_sites(width);
   } else {
     c.T = smem + L.t;
   }
@@ -1633,10 +1889,10 @@ extern "C" {
 // -3 a sumtable too wide for shared memory without a t_scratch. At most
 // ``blocks`` persistent CTAs (whole clusters of them past 8 rates at
 // K = 20); t_scratch is null (T in shared memory) or holds ``blocks``
-// slices of [RK (+1)][width] floats in device memory (RK: a CTA's rate
-// slots x num_states). next_pair [1] is the K = 4 kernel's pair counter,
-// 0 at launch (the K = 20 kernel walks its pairs by grid stride and reads
-// no counter).
+// slices of T in device memory ([RK (+1)][width] floats, RK a CTA's rate
+// slots x num_states; at K = 4 [dna_t_sites(width)][dna_t_stride(RK (+1))]).
+// next_pair [1] is the K = 4 kernel's pair counter, 0 at launch (the
+// K = 20 kernel walks its pairs by grid stride and reads no counter).
 // invq [Q, S], ls [E, S] and omp [1] are read only by the +I library;
 // smoothings and iters [P] are both null (no counters) or both set.
 int blo_newton_launch(const float* tU, const float* tV, const float* tQ,

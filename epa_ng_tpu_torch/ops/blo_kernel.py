@@ -174,6 +174,13 @@ def _t_stride(k: int, rk: int, has_pinv: bool = False) -> int:
     return padded + 4 if padded % 8 == 0 else padded
 
 
+def _t_sites(k: int, width: int) -> int:
+    """Sites of T at sumtable width ``width``: at K = 4 the width rounded
+    up to 32 (``dna_t_sites``: the runtime-R loops write T up to the span
+    rounded up to a warp's 32 sites), at K = 20 the width."""
+    return _round32(width) if k == 4 else width
+
+
 def _team_fixed_bytes(k: int, R: int, mixture: bool) -> int:
     """A CTA's shared memory ahead of T: tables, exponential rows,
     reduction buffers (at K = 20 for its slice of the rates)."""
@@ -225,7 +232,7 @@ def kernel_geometry(num_states: int, R: int, width: int,
     s = _slice_rates(num_states, R)
     fixed = _team_fixed_bytes(num_states, R, mixture)
     t = _round32(_t_stride(num_states, num_states * s, has_pinv)
-                 * width) * 4
+                 * _t_sites(num_states, width)) * 4
     t_shared = fixed + t <= SMEM_PER_BLOCK
     shared = fixed + t * t_shared
     per_warp = -(-regs * 32 // 256) * 256
@@ -867,7 +874,8 @@ class _BloNewton:
         C = geo["cluster"]
         blocks, scratch = P * C, None
         if not geo["t_shared"]:
-            per_cta = _t_stride(K, K * geo["slice_rates"], has_pinv) * width
+            per_cta = (_t_stride(K, K * geo["slice_rates"], has_pinv)
+                       * _t_sites(K, width))
             # the library sets its attributes and reads the occupancy on
             # the current card: make it the one this launch runs on
             with torch.cuda.device(dev):

@@ -601,18 +601,41 @@ RATE_CASES = {"dna": ("GTR{{1.1/2.9/0.8/1.2/3.4/1}}+FU{{0.27/0.23/0.24/"
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("case,R", [("dna", 9), ("dna", 16), ("pinv", 9),
-                                    ("pinv", 16), ("lg", 9), ("lg", 16),
-                                    ("mixture", 9)])
+@pytest.mark.parametrize("case,R", [("dna", 9), ("dna", 10), ("dna", 11),
+                                    ("dna", 16), ("pinv", 9), ("pinv", 10),
+                                    ("pinv", 11), ("pinv", 16), ("lg", 9),
+                                    ("lg", 16), ("mixture", 9)])
 @pytest.mark.parametrize("home", ["shared", "widest", "device"])
 def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
     """Past 8 rate categories (the K = 4 runtime-R instantiation, without
-    and with +I; the K = 20 cluster of two CTAs a pair, one matrix and a
-    nine-component mixture) the kernel matches its plain version on the
-    card bit for bit, with the counters, with T in shared memory (at 128
-    sites and at the widest window that fits) and in device memory; each
-    launch counts past 8 rates, and the library's geometry matches
-    kernel_geometry's."""
+    and with +I, at every remainder of its 4-rate chunks; the K = 20
+    cluster of two CTAs a pair, one matrix and a nine-component mixture)
+    the kernel matches its plain version on the card bit for bit, with
+    the counters, with T in shared memory (at 128 sites and at the widest
+    window that fits) and in device memory; each launch counts past 8
+    rates, and the library's geometry matches kernel_geometry's."""
+    _past_eight_rates(case, R, home, 128)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case,R,width", [("dna", 64, 128),
+                                          ("pinv", 64, 128),
+                                          ("dna", 312, 32),
+                                          ("pinv", 312, 32)])
+@pytest.mark.parametrize("home", ["shared", "widest", "device"])
+def test_kernel_wide_rates_matches_plain_on_card(case, R, width, home):
+    """The K = 4 runtime-R instantiation at 64 rates (128 sites) and at
+    its cap, 312 (32 sites: the widest window whose T fits beside its
+    tables), bit for bit with its plain version and the counters in every
+    sumtable home."""
+    assert R <= bk.MAX_RATES[(4, False)]
+    _past_eight_rates(case, R, home, width)
+
+
+def _past_eight_rates(case, R, home, shared_width):
+    """One launch past 8 rates in ``home`` against the plain version (T in
+    shared memory at ``shared_width`` sites, at the widest window that
+    keeps it there, or in device memory past that)."""
     dev = _card()
     pinv, mix = case == "pinv", case == "mixture"
     K = 4 if case in ("dna", "pinv") else 20
@@ -630,7 +653,8 @@ def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
     blo = eng.blo
     assert blo.tU.shape[1] == K * R
     shared = bk.max_shared_sites(K * R, pinv, K, mix)
-    width = {"shared": 128, "widest": shared, "device": shared + 32}[home]
+    width = {"shared": shared_width, "widest": shared,
+             "device": shared + 32}[home]
     lib = bk.blo_newton.team_geometry(K, R, width, mix, pinv,
                                       device_t=home == "device")
     g = bk.kernel_geometry(K, R, width, mix, pinv, regs=lib["regs"])
@@ -648,6 +672,127 @@ def test_kernel_past_eight_rates_matches_plain_on_card(case, R, home):
     assert after["past8_launches"] == before["past8_launches"] + 1
     _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
                                              counters=True, **kw))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["dna", "pinv"])
+@pytest.mark.parametrize("width", [200, 1000])
+def test_kernel_per_pair_width_off_32_on_card(case, width):
+    """The per-pair shape (K3, +I K4) at R = 16 with a window width that is
+    not a multiple of 32, as ``--memsave`` and the mesh's exact redo give
+    it (the slab width, or the alignment's sites): 200 (T in shared
+    memory) and 1000 (T in device memory, one slice per CTA), with spans
+    up to the width. The runtime-R loops write T up to the span rounded
+    up to 32 sites, which the layout holds; bit for bit with the plain
+    version and the counters, and the library's geometry is
+    kernel_geometry's."""
+    dev = _card()
+    pinv = case == "pinv"
+    R = 16
+    eng, tQ, pe, pq, _, _, invq = _state(
+        dev, 192, seed=width, model=RATE_CASES[case].format(R=R),
+        n_taxa=16, data_seed=21, with_invq=True)
+    blo = eng.blo
+    S = blo.tU.shape[2]
+    home = "shared" if width <= bk.max_shared_sites(4 * R, pinv) else "device"
+    assert home == ("shared" if width == 200 else "device")
+    lib = bk.blo_newton.team_geometry(4, R, width, has_pinv=pinv,
+                                      device_t=home == "device")
+    g = bk.kernel_geometry(4, R, width, has_pinv=pinv, regs=lib["regs"])
+    assert g["t_shared"] == (home == "shared")
+    _same_geometry(lib, g)
+    # each pair's window: the store's sites repeated out to the width, its
+    # span past the width's last multiple of 32 for most pairs
+    cols = torch.arange(width, device=dev) % S
+    e, q = pe.long(), pq.long()
+    tu, tv = blo.tU[e][:, :, cols], blo.tV[e][:, :, cols]
+    tq = tQ[q][:, :, cols]
+    rng = np.random.default_rng(width)
+    sp = torch.as_tensor(rng.integers(width - 31, width + 1, len(pe)),
+                         dtype=torch.int32, device=dev)
+    sp[::8] = torch.as_tensor(rng.integers(1, width + 1, len(sp[::8])),
+                              dtype=torch.int32, device=dev)
+    assert (sp > width // 32 * 32).sum() >= len(sp) // 8
+    ids = torch.arange(len(pe), dtype=torch.int32, device=dev)
+    args = (tu, tv, tq, ids, ids, torch.zeros_like(ids), sp,
+            blo.lengths[e], torch.zeros(len(pe), device=dev))
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    kw = (dict(invq=invq[q][:, cols], ls=blo.ls[e][:, cols],
+               omp=bk._omp(eng.consts, torch.float32)) if pinv else {})
+    before = bk.blo_newton.counts()
+    got = bk.blo_newton(tables, *args, width, counters=True, per_pair=True,
+                        **kw)
+    torch.cuda.synchronize()
+    after = bk.blo_newton.counts()
+    assert after["per_pair_launches"] == before["per_pair_launches"] + 1
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
+                                             counters=True, **kw))
+
+
+ORDER_MODELS = {"g4": GTR, "g16": RATE_CASES["dna"].format(R=16),
+                "pinv_g16": RATE_CASES["pinv"].format(R=16)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", sorted(ORDER_MODELS))
+@pytest.mark.parametrize("edges", ["drawn", "one_edge"])
+def test_kernel_pair_order_on_card(model, edges):
+    """The K = 4 kernel's persistent CTAs take a launch's pairs as they
+    come and write each pair's results at its own index: the same pairs
+    given as drawn, reversed and shuffled (and all moved onto one edge,
+    where every pair in flight shares its rows) give the same outputs and
+    counters, bit for bit, pair by pair, and the plain version's."""
+    dev = _card()
+    pinv = model == "pinv_g16"
+    eng, tQ, pe, pq, pb, sp, invq = _state(
+        dev, 512, seed=8, model=ORDER_MODELS[model], n_taxa=16,
+        data_seed=21, with_invq=True)
+    blo = eng.blo
+    if edges == "one_edge":
+        pe = torch.full_like(pe, 3)
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    kw = (dict(invq=invq, ls=blo.ls, omp=bk._omp(eng.consts, torch.float32))
+          if pinv else {})
+    rng = np.random.default_rng(4)
+    perms = {"drawn": torch.arange(len(pe), device=dev),
+             "reversed": torch.arange(len(pe) - 1, -1, -1, device=dev),
+             "shuffled": torch.as_tensor(rng.permutation(len(pe)),
+                                         device=dev)}
+    runs = {}
+    for name, perm in perms.items():
+        args = (blo.tU, blo.tV, tQ, pe[perm], pq[perm], pb[perm], sp[perm],
+                blo.lengths[pe[perm].long()],
+                torch.zeros(len(pe), device=dev))
+        got = bk.blo_newton(tables, *args, 256, counters=True, **kw)
+        inv = torch.argsort(perm)
+        runs[name] = [t[inv] for t in got]
+        if name == "drawn":
+            want = bk.blo_newton_plain(tables, *args, 256, counters=True,
+                                       **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(runs["drawn"], want)
+    for name in ("reversed", "shuffled"):
+        for a, b in zip(runs[name], runs["drawn"]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("heuristic", ["fixed", "baseball"])
+def test_exact_budgets_g16_on_card(tmp_path, monkeypatch, heuristic):
+    """``-G 0.1`` (fixed) and ``--baseball-heur`` give the fused step
+    exact budgets (ceil(G E) and 40 candidates a query, not halved) and
+    so launch the K = 4 runtime-R instantiation at top-k up to E: GTR+G16
+    on a small reference (64 taxa x 200 sites, 256 reads, seed 5) places
+    through the kernel alone, never the torch twin, and agrees with the
+    port's f64 CPU run (top edge up to ties on >= 99% of reads, best logl
+    within 1e-5 relative): ``chip_smoke.exact_budgets``, phase 5's."""
+    import chip_smoke as cs
+    _card()
+    monkeypatch.setattr(cs, "OUT", str(tmp_path))
+    res = cs.exact_budgets(
+        "cuda", {heuristic: cs.EXACT_BUDGETS[heuristic]})[heuristic]
+    assert res["launches"] > 0 and res["twin_launches"] == 0
+    assert res["agreement"]["top_edge_up_to_ties"] >= 0.99
 
 
 @pytest.mark.requires_cuda

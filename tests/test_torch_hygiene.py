@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``epa_ng_tpu_torch/``, nor
-``chip_smoke.py`` or ``kernel_ab.py``, imports JAX or anything of the JAX
-package (the port keeps its own copies of the host code it needs)."""
+``chip_smoke.py``, ``kernel_ab.py`` or ``kernel_sass.py``, imports JAX or
+anything of the JAX package (the port keeps its own copies of the host
+code it needs)."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "kernel_ab.py")]
+    files = [os.path.join(ROOT, n)
+             for n in ("chip_smoke.py", "kernel_ab.py", "kernel_sass.py")]
     for d, subdirs, names in os.walk(os.path.join(ROOT, "epa_ng_tpu_torch")):
         # build/ holds what the package generates at run time
         subdirs[:] = [s for s in subdirs if s != "build"]
@@ -28,6 +30,7 @@ def test_port_files_found():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert os.path.join(ROOT, "kernel_ab.py") in files
+    assert os.path.join(ROOT, "kernel_sass.py") in files
     assert len(files) > 20
 
 
