@@ -6,8 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name and power limit from nvidia-smi, cross-checked against
    torch.cuda.get_device_name;
-2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc, its two
-   libraries (without and with the +I term) side by side, and print each
+2. build the CUDA Newton kernel (csrc/blo_newton.cu) with nvcc, its five
+   libraries (without and with the +I term, times K = 4, K = 20 and K = 20
+   mixtures; ``blo_kernel.LIBRARIES``) side by side, and print each
    instantiation's registers and spill (the K = 20 cluster's and the
    K = 4 runtime-R shared-home ones must not spill, the latter within
    168 registers: 3 CTAs an SM);
@@ -61,7 +62,15 @@ Phases (any failure exits non-zero and prints no result line):
    GTR+I{0.2}+R10 on data with invariant columns, under LG+G16 and under
    the 32-component mixture (a cluster of 4 CTAs); then GTR+G16 under the
    exact budgets, ``-G 0.1`` and ``--baseball-heur`` (top-k up to E, the
-   budget not halved), through the K = 4 runtime-R instantiation only;
+   budget not halved), through the K = 4 runtime-R instantiation only,
+   and the same under GTR+G4, LG+G4 and the four-component mixture, each
+   through its own instantiation;
+5b. the flags no other phase runs on the card: ``--lookup-dtype bf16`` on
+   the headline and protein data against phase 4's runs (top edge up to
+   ties), ``--compute-dtype f64`` and ``--pallas off`` (the torch twin on
+   the card, in f64 and in f32) against the small reference's f64 CPU run
+   (1e-8 absolute; 1e-5 relative), ``--no-pre-mask`` on a small reference
+   of its own, and a ``-c`` bfast file placed as its FASTA file is;
 6. the DNA, +I, protein, mixture, GTR+G16 and LG+G16 main paths once more
    under torch.profiler (device time by kernel, busy share);
 7. the rest of the one-card CLI, each path with the counts reset just
@@ -101,7 +110,17 @@ Phases (any failure exits non-zero and prints no result line):
    one site late that these gates must refuse; then the small references
    under GTR+G4 and +I{0.2}+G4 (seed 5) at budget 0 and at a quarter of
    the store, and a ``--dump-binary`` -> ``-b --memsave`` round trip,
-   against the f64 CPU run.
+   against the f64 CPU run;
+8b. ``--memsave`` past DNA G4 through the CLI on phase 4's data: LG+G4
+   (budget 0 and half the store), LG+I{0.2}+G4 on the protein +I data,
+   the four-component mixture, LG+G16 (0 and half), LG+I+G16, the
+   16-component mixture, and GTR+G16 and GTR+I{0.2}+G16 on the headline's
+   and the +I data's first 2048 reads: each only its own instantiation's
+   per-pair shape at budget 0 (and the blocked one on the cached prefix
+   at half), never the twin, against the cell's resident run (phase 4's,
+   or one run here) by phase 8's gates at the cell's own tolerance (four
+   f32 spacings at its largest |best logl|, ``f32_steps``); and the
+   negative control again on the LG+G4 cell.
 
 9. multi-device and multi-process placement on the one card, each path
    with the counts reset just before it and read just after: (a)
@@ -109,7 +128,10 @@ Phases (any failure exits non-zero and prints no result line):
    JAX bench's mesh1x1 cell: the state built on the CPU, the sharded step
    with the blocked kernel on its shard), against phase 4's and 4b's runs
    (phase 8's gates: top edge up to ties on >= 99%, shared top edges
-   within MEMSAVE_LOGL_ABS), with q/s and its ratio to the resident run;
+   within MEMSAVE_LOGL_ABS), with q/s and its ratio to the resident run,
+   then the protein, LG+I+G4, mixture and LG+G16 cells (the K = 20
+   blocked shapes on the shard) against their resident runs at their own
+   tolerance;
    (b) the JAX bench's bigtree evolved cell (2048 taxa x 256 sites, 4,093
    edges, 2048 reads, seed 19, chunk 512) through the library with
    ``make_mesh(1, 4, [cuda:0] * 4)`` and ``make_mesh(2, 2, [cuda:0] *
@@ -117,7 +139,10 @@ Phases (any failure exits non-zero and prints no result line):
    (every shard's blocked launches, never the twin, each shard's bytes
    and the pad edges), then a forced exact redo of 256 pairs through the
    mesh engine's ``_thorough`` (the per-pair shape on the host store's
-   windows) against the resident engine's; (c) two CLI processes on the
+   windows) against the resident engine's; then the LG+G16 cell on
+   ``make_mesh(1, 4)`` the same way (the cluster's blocked shape on every
+   shard, padded edges included, and its per-pair shape in the exact
+   redo); (c) two CLI processes on the
    card joined by ``--distributed 127.0.0.1:PORT,2,RANK`` (gloo), even
    and with ``--adaptive-split``: the merged jplace holds every name
    once in input order, no shard is left, each rank launched the kernel
@@ -218,8 +243,17 @@ MEMSAVE_KEEP = ("--filter-max", "256")
 # where f32 values lie 2^-6 = 0.015625 apart; runs of one host build, and
 # the resident runs where they share the top edge, differ by at most two
 # such steps (0.03125), and a site mask one site late on the streamed
-# pairs (a control) by up to 1,905 (PERF.md, PR 8)
+# pairs (a control) by up to 1,905 (PERF.md §6). The tolerance is four
+# such steps: f32_steps(226_000) = 4 x 2^(17 - 23) = 0.0625, and every
+# other cell's (phases 8b and 9) is f32_steps at its own largest |best
+# logl|, as it comes out (never rounded up)
 MEMSAVE_LOGL_ABS = 0.0625
+LOGL_STEPS = 4
+# phase 8b: --memsave past DNA G4 on phase 4's cells, their reads cut to
+# this many where a cell has more (the G16 headline and its +I copy)
+MEMSAVE_WIDE_READS = 2048
+# phase 5's --no-pre-mask reference (taxa, sites, queries, --no-heur)
+NO_PREMASK_SIZE = (32, 200, 128, 32)
 # the device memory a built --memsave engine may hold beyond its cache
 # (the model's constants and character CLVs take kilobytes)
 MEMSAVE_REST_SLACK_MB = 1.0
@@ -249,6 +283,17 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def f32_steps(pl, steps=LOGL_STEPS) -> float:
+    """``steps`` f32 spacings at the largest |best logl| of the jplace
+    placements ``pl`` (as :func:`read_jplace` gives them): what two f32
+    runs of one cell that sum the same sites in other orders may differ
+    by, where they share the top edge."""
+    import numpy as np
+    worst = max(abs(max(r["likelihood"] for r in rows))
+                for rows in pl.values())
+    return steps * float(np.spacing(np.float32(worst)))
 
 
 def card_line() -> str:
@@ -710,7 +755,7 @@ def fmad_ab(cases, rounds=3, reps=20):
 
     builds = {fmad: bk._BloNewton(fmad=fmad) for fmad in (False, True)}
     with ThreadPoolExecutor(2) as ex:
-        futs = [ex.submit(k.build) for k in builds.values()]
+        futs = [ex.submit(k.build_all) for k in builds.values()]
         try:
             for fut in futs:
                 fut.result()
@@ -936,48 +981,198 @@ EXACT_BUDGETS = {"fixed": ("-G", "0.1"), "baseball": ("--baseball-heur",)}
 
 
 def exact_budgets(device, heuristics=EXACT_BUDGETS, model=G16_MODEL,
-                  size=(64, 200, 256), seed=5):
+                  size=(64, 200, 256), seed=5, name="exact_budgets",
+                  alphabet="ACGT", random_data=False, family="k4_launches",
+                  past8=True):
     """Phase 5's exact budgets: ``-G`` (fixed) and ``--baseball-heur`` give
     the fused step exact budgets (ceil(G E) and 40 candidates a query,
-    not halved), so under ``model`` (GTR+G16) the K = 4 runtime-R
-    instantiation runs at top-k up to E. Each heuristic's run on
-    ``device`` is held against the port's f64 CPU run of the same files
-    (``size`` = taxa, sites, queries; ``seed``): top edge up to ties on
-    >= 99%, best logl within 1e-5 relative; on the card only kernel
-    launches past 8 rates, and no torch-twin call. Returns per heuristic
-    the agreement, the launches and the twin's calls."""
+    not halved), so under ``model`` the kernel runs at top-k up to E
+    (GTR+G16: the K = 4 runtime-R instantiation; GTR+G4, LG+G4, the
+    mixture). Each heuristic's run on ``device`` is held against the
+    port's f64 CPU run of the same files (``size`` = taxa, sites, queries;
+    ``seed``; evolved over ``alphabet``, or ``random_data`` as for a
+    mixture, whose ties every run keeps): top edge up to ties on >= 99%,
+    best logl within 1e-5 relative; on the card only launches of the
+    ``family`` instantiation (past 8 rates iff ``past8``), and no
+    torch-twin call. Returns per heuristic the agreement, the launches
+    and the twin's calls."""
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
-    outdir = os.path.join(OUT, "exact_budgets")
+    outdir = os.path.join(OUT, name)
     n_taxa, sites, n_queries = size
-    _, paths = make_data(n_taxa, sites, n_queries, seed,
-                         os.path.join(outdir, "data"))
+    if random_data:
+        _, paths = make_random_data(n_taxa, sites, n_queries, seed,
+                                    os.path.join(outdir, "data"))
+    else:
+        _, paths = make_data(n_taxa, sites, n_queries, seed,
+                             os.path.join(outdir, "data"),
+                             model=MODEL if alphabet == "ACGT" else AA_MODEL,
+                             alphabet=alphabet)
+    keep = MEMSAVE_KEEP if random_data else ()
     out = {}
-    for name, flags in heuristics.items():
+    for key, flags in heuristics.items():
         runs = {}
         for dev in (device, "cpu"):
-            d = os.path.join(outdir, f"{name}_{dev}")
+            d = os.path.join(outdir, f"{key}_{dev}")
             blo_newton.reset_counts()
-            st, _ = run_cli(paths, d, dev, chunk=256, extra=flags,
+            st, _ = run_cli(paths, d, dev, chunk=256, extra=flags + keep,
                             model=model)
             if dev == device:
                 counts, twin = blo_newton.counts(), st["twin_launches"]
             runs[dev] = read_jplace(os.path.join(d, "epa_result.jplace"))
         a, b = runs[device], runs["cpu"]
         check(a.keys() == b.keys() and len(a) == n_queries,
-              f"exact budgets {name}: a run lost queries")
+              f"{name} {key}: a run lost queries")
         if device == "cuda":
             check(counts["launches"] > 0 and twin == 0
-                  and counts["past8_launches"] == counts["launches"],
-                  f"exact budgets {name}: launches {counts}, twin {twin}")
+                  and counts[family] == counts["launches"]
+                  and counts["past8_launches"] == (counts["launches"]
+                                                   if past8 else 0),
+                  f"{name} {key}: launches {counts}, twin {twin}")
         ag = agreement(a, b, 1e-5)
         check(ag["top_edge_up_to_ties"] >= 0.99,
-              f"exact budgets {name}: top placements agree (up to ties) "
+              f"{name} {key}: top placements agree (up to ties) "
               f"on {ag['top_edge_up_to_ties']:.3f} < 0.99")
-        check(ag["max_rel_best_logl"] <= 1e-5, f"exact budgets {name}: "
+        check(ag["max_rel_best_logl"] <= 1e-5, f"{name} {key}: "
               f"best logl rel diff {ag['max_rel_best_logl']:.3g}")
-        out[name] = dict(agreement=ag, launches=counts["launches"],
-                         twin_launches=twin)
+        out[key] = dict(agreement=ag, launches=counts["launches"],
+                        twin_launches=twin)
     return out
+
+
+# phase 5's exact budgets past GTR+G16: exact_budgets' arguments per cell;
+# size (taxa, sites, queries): GTR+G4 at GTR+G16's taxa and sites, LG+G4
+# and the mixture at the K = 20 small references' (48 x 200; the
+# mixture's 32 x 160), each with fewer reads (the f64 CPU runs take most
+# of the time)
+EXACT_CELLS = {
+    "gtr_g4": dict(model=MODEL, size=(64, 200, 128), name="exact_gtr_g4",
+                   past8=False),
+    "lg_g4": dict(model=AA_MODEL, size=(48, 200, 32), name="exact_lg_g4",
+                  alphabet=AA, family="k20_launches", past8=False),
+    "mixture": dict(model=MIX_MODEL, size=(32, 160, 24), name="exact_mix",
+                    random_data=True, family="mixture_launches",
+                    past8=False)}
+
+
+def exact_budgets_wide(device) -> dict:
+    """Phase 5's exact budgets past GTR+G16 (EXACT_CELLS): GTR+G4 (K = 4,
+    R = 4), LG+G4 (K = 20) and the four-component mixture on random
+    reads, each under ``-G 0.1`` and ``--baseball-heur`` against the f64
+    CPU run."""
+    return {k: exact_budgets(device, **kw) for k, kw in EXACT_CELLS.items()}
+
+
+def _jplace_doc(path):
+    """A jplace document without its invocation line."""
+    with open(path) as f:
+        doc = json.load(f)
+    doc["metadata"].pop("invocation")
+    return doc
+
+
+def lookup_bf16(device, base, paths, n, true_edges, model, family,
+                chunk) -> dict:
+    """Phase 5b: ``--lookup-dtype bf16`` (the residual preplacement GEMM in
+    bf16, ranking only) on phase 4's run ``base`` of these files, against
+    that run with the f32 table: only the ``family`` instantiation, and
+    the top edge up to ties (f32_steps of the f32 run) on >= 99% of the
+    queries; logl is not compared."""
+    st = main_path(paths, n, true_edges, device, model=model,
+                   name=f"{base}_bf16", chunk=chunk,
+                   extra=("--lookup-dtype", "bf16"))
+    check_main(f"{base} --lookup-dtype bf16", st, family)
+    pl = {k: read_jplace(os.path.join(OUT, k, "epa_result.jplace"))
+          for k in (base, f"{base}_bf16")}
+    tol = f32_steps(pl[base])
+    ag = agreement(pl[f"{base}_bf16"], pl[base], tol, absolute=True)
+    check(ag["top_edge_up_to_ties"] >= 0.99,
+          f"{base} --lookup-dtype bf16: top edge up to ties "
+          f"{ag['top_edge_up_to_ties']:.4f} < 0.99 against the f32 table")
+    return dict(qps=st["qps"], tie_tol=tol, agreement=ag)
+
+
+TWIN_FLAGS = {"f64": (("--compute-dtype", "f64"), 1e-8, True),
+              "pallas_off": (("--pallas", "off"), 1e-5, False)}
+
+
+def small_paths() -> tuple:
+    """The files of phase 5's GTR+G4 small reference (``small_reference``'s
+    default run): tree, reference and query."""
+    return tuple(os.path.join(OUT, "small", f)
+                 for f in ("tree.nwk", "ref.fasta", "query.fasta"))
+
+
+def twin_on_card(device, key) -> dict:
+    """Phase 5b: the torch twin on the card, on phase 5's small reference
+    (its files and its f64 CPU run): ``--compute-dtype f64`` against the
+    f64 CPU run within ROADMAP's f64 tolerance, 1e-8 absolute, and
+    ``--pallas off`` (f32) by the small references' 1e-5 relative; every
+    query's best logl, and the top edge up to ties at that tolerance; no
+    kernel launch."""
+    from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
+    flags, tol, absolute = TWIN_FLAGS[key]
+    d = os.path.join(OUT, f"small_{key}_{device}")
+    blo_newton.reset_counts()
+    st, _ = run_cli(small_paths(), d, device, chunk=256, extra=flags)
+    counts = blo_newton.counts()
+    check(counts["launches"] == 0 and st["twin_launches"] > 0,
+          f"{key} on {device}: kernel launches {counts['launches']}, "
+          f"twin launches {st['twin_launches']}")
+    ag = agreement(read_jplace(os.path.join(d, "epa_result.jplace")),
+                   read_jplace(os.path.join(OUT, "small", "dyn_cpu",
+                                            "epa_result.jplace")),
+                   tol, absolute=absolute)
+    worst = ag["max_abs_best_logl" if absolute else "max_rel_best_logl"]
+    check(ag["top_edge_up_to_ties"] >= 0.99 and worst <= tol,
+          f"{key} on {device} against the f64 CPU run: {ag} (tolerance "
+          f"{tol}, {'absolute' if absolute else 'relative'})")
+    return dict(agreement=ag, twin_launches=st["twin_launches"],
+                placing_s=st["placing_s"])
+
+
+def no_pre_mask(device) -> dict:
+    """Phase 5b: ``--no-pre-mask`` on a small reference of its own (both
+    devices; :func:`small_reference`'s gates), through the kernel."""
+    sm = small_reference(device, name="small_nopremask",
+                         size=NO_PREMASK_SIZE, extra=("--no-pre-mask",))
+    check(sm["launches"]["launches"] > 0 and sm["twin_launches"] == 0,
+          f"--no-pre-mask small reference: launches {sm['launches']}, "
+          f"twin launches {sm['twin_launches']}")
+    return sm
+
+
+def bfast_round_trip(device, paths) -> dict:
+    """Phase 5b: ``-c`` converts the query file to bfast; placed from it
+    on ``device``, the reads give the same jplace as from the FASTA file
+    but for the invocation line."""
+    from epa_ng_tpu_torch import cli
+    d = os.path.join(OUT, "bfast")
+    check(cli.main(["-c", paths[2], "--outdir", d]) == 0,
+          "-c: the conversion failed")
+    bfast = os.path.join(d, os.path.basename(paths[2]) + ".bfast")
+    docs = {}
+    for src, query in (("fasta", paths[2]), ("bfast", bfast)):
+        out = os.path.join(d, f"place_{src}")
+        run_cli((paths[0], paths[1], query), out, device, chunk=256)
+        docs[src] = _jplace_doc(os.path.join(out, "epa_result.jplace"))
+    check(docs["bfast"] == docs["fasta"] and docs["fasta"]["placements"],
+          "-c: the bfast file places otherwise than the FASTA file")
+    return dict(placements=len(docs["bfast"]["placements"]), identical=True)
+
+
+def flags_phase(device, mains) -> dict:
+    """Phase 5b: the CLI flags that no earlier phase runs on the card:
+    ``--lookup-dtype bf16`` on phase 4's runs in ``mains`` (name -> its
+    paths, reads, true edges, model, family, chunk), ``--compute-dtype
+    f64`` and ``--pallas off`` on phase 5's small reference,
+    ``--no-pre-mask``, and ``-c`` on the small reference's reads."""
+    res = {f"{base}_bf16": lookup_bf16(device, base, *args)
+           for base, args in mains.items()}
+    for key in TWIN_FLAGS:
+        res[key] = twin_on_card(device, key)
+    res["no_pre_mask"] = no_pre_mask(device)
+    res["bfast"] = bfast_round_trip(device, small_paths())
+    return res
 
 
 def explicit_gtr(model) -> str:
@@ -1292,17 +1487,20 @@ def rest_of_cli(paths, n_queries, true_edges, lap) -> dict:
 
 
 def memsave_run(paths, n_queries, name, budget=None, model=MODEL,
-                resident=None) -> dict:
+                resident=None, family="k4_launches", pinv=None,
+                past8=False, cluster=False) -> dict:
     """Phase 8: one CLI run of a memsave cell (:func:`main_path`'s counts
-    and checks), with ``--memsave --memsave-budget <budget>`` unless
-    ``budget`` is None (the resident engine), and the device memory it
-    held: ``rest_mb`` with the engine built and idle, ``peak_mb`` at most
-    while it placed (the CLI's ``device_mb_at_place`` and
-    ``device_peak_mb``, less what the process held before the run). A
+    and checks: only the ``family`` instantiation, with +I iff ``pinv``,
+    by default iff ``model`` is PINV_MODEL, past 8 rates iff ``past8``,
+    on clusters iff ``cluster``), with ``--memsave --memsave-budget
+    <budget>`` unless ``budget`` is None (the resident engine), and the
+    device memory it held: ``rest_mb`` with the engine built and idle,
+    ``peak_mb`` at most while it placed (the CLI's ``device_mb_at_place``
+    and ``device_peak_mb``, less what the process held before the run). A
     --memsave run holds its cache at rest and no more (the store off the
     device stays off it); while it places it adds at most the
-    ``resident`` run's temporaries plus its staging rings, which stay
-    within depth x their largest request."""
+    ``resident`` run's temporaries (where given) plus its staging rings,
+    which stay within depth x their largest request."""
     import gc
 
     import torch
@@ -1316,8 +1514,15 @@ def memsave_run(paths, n_queries, name, budget=None, model=MODEL,
     st.update(budget_gb=budget, rest_mb=st["device_mb_at_place"] - base,
               peak_mb=st["device_peak_mb"] - base)
     st["temp_mb"] = st["peak_mb"] - st["rest_mb"]
+    if st.get("per_pair_launches"):
+        # the streamed pairs' per-pair launches: slabs of at most
+        # SLAB_BYTES, then the redo pass's few pairs
+        st["streamed_pairs_per_launch"] = (st["memsave_streamed_pairs"]
+                                           / st["per_pair_launches"])
     print(f"memsave {name}: " + json.dumps(st), flush=True)
-    check_main(name, st, "k4_launches", pinv=model == PINV_MODEL)
+    check_main(name, st, family, pinv=(model == PINV_MODEL if pinv is None
+                                       else pinv),
+               past8=past8, cluster=cluster)
     if budget is None:
         return st
     check(st["memsave_ring_mb"] <= st["memsave_ring_bound_mb"],
@@ -1327,6 +1532,8 @@ def memsave_run(paths, n_queries, name, budget=None, model=MODEL,
           f"{name}: the built engine holds {st['rest_mb']:.3f} MB on the "
           f"device, above its cache {st['memsave_cached_mb']:.3f} MB + "
           f"{MEMSAVE_REST_SLACK_MB} MB")
+    if resident is None:
+        return st
     allowed = resident["temp_mb"] + st["memsave_ring_mb"]
     check(st["temp_mb"] <= allowed + MEMSAVE_PEAK_SLACK_MB,
           f"{name}: placing added {st['temp_mb']:.1f} MB on the device, "
@@ -1336,35 +1543,40 @@ def memsave_run(paths, n_queries, name, budget=None, model=MODEL,
     return st
 
 
-def memsave_gates(pl, pairs, every):
+def memsave_gates(pl, pairs, every, tol=MEMSAVE_LOGL_ABS):
     """Phase 8's agreement of jplace runs ``pl`` by name, for each (name,
     other) of ``pairs``: the top edge up to ties on >= 99% of the queries
-    and the best logl within MEMSAVE_LOGL_ABS wherever both runs share
-    the top edge, both at that absolute tolerance; and on every query the
-    best logl within ``every`` (a relative tolerance, for runs whose
-    heuristic cut may keep another candidate set on a query), within
-    MEMSAVE_LOGL_ABS if ``every`` is "abs", not held if it is None."""
+    and the best logl within ``tol`` (MEMSAVE_LOGL_ABS, or a cell's own
+    f32_steps) wherever both runs share the top edge, both at that
+    absolute tolerance; and on every query the best logl within ``every``
+    (a relative tolerance, for runs whose heuristic cut may keep another
+    candidate set on a query), within ``tol`` if ``every`` is "abs", not
+    held if it is None. A run that keeps every tied edge (MEMSAVE_KEEP)
+    goes second, where the first run's top edge is looked up."""
     gates = {}
     for name, other in pairs:
-        ag = agreement(pl[name], pl[other], MEMSAVE_LOGL_ABS, absolute=True)
+        ag = agreement(pl[name], pl[other], tol, absolute=True)
+        ag["tol"] = tol
         gates[f"{name}_vs_{other}"] = ag
         all_ok = (every is None
-                  or (ag["max_abs_best_logl"] <= MEMSAVE_LOGL_ABS
+                  or (ag["max_abs_best_logl"] <= tol
                       if every == "abs" else
                       ag["max_rel_best_logl"] <= every))
         check(ag["top_edge_up_to_ties"] >= 0.99
-              and ag["max_abs_best_logl_same_top"] <= MEMSAVE_LOGL_ABS
+              and ag["max_abs_best_logl_same_top"] <= tol
               and all_ok,
               f"memsave {name} against {other}: {ag} (tolerance "
-              f"{MEMSAVE_LOGL_ABS} absolute, on every query {every})")
+              f"{tol} absolute, on every query {every})")
     return gates
 
 
-def memsave_control(paths, n_queries, sound) -> dict:
+def memsave_control(paths, n_queries, sound, model=MODEL, name="",
+                    tol=MEMSAVE_LOGL_ABS) -> dict:
     """Phase 8's negative control: the budget-0 run again with each
     streamed pair's site mask one site late (its last site dropped), a
-    fault that the logl gates must refuse against the sound run
-    ``sound`` (a jplace)."""
+    fault that the logl gates (at ``tol``) must refuse against the sound
+    run ``sound`` (a jplace); under ``model`` (phase 8b: LG+G4, K =
+    20)."""
     import torch
 
     from epa_ng_tpu_torch.ops import blo_kernel
@@ -1375,21 +1587,23 @@ def memsave_control(paths, n_queries, sound) -> dict:
         mask[:, 1:] = site_mask[:, :-1]
         return per_pair(consts, tU, tV, tQ, ls, mask, *a, **k)
 
-    outdir = os.path.join(OUT, "memsave_control")
+    outdir = os.path.join(OUT, f"memsave_control{name}")
     blo_kernel.blo_optimize_batch_kernel = late
     try:
-        run_cli(paths, outdir, "cuda", chunk=MEMSAVE_CHUNK,
+        run_cli(paths, outdir, "cuda", chunk=MEMSAVE_CHUNK, model=model,
                 extra=("--memsave", "--memsave-budget", "0.0",
                        *MEMSAVE_KEEP))
     finally:
         blo_kernel.blo_optimize_batch_kernel = per_pair
     pl = read_jplace(os.path.join(outdir, "epa_result.jplace"))
     check(len(pl) == n_queries, "memsave control lost queries")
-    ag = agreement(pl, sound, MEMSAVE_LOGL_ABS, absolute=True)
-    print("memsave control: " + json.dumps(ag), flush=True)
+    ag = agreement(pl, sound, tol, absolute=True)
+    ag["tol"] = tol
+    print(f"memsave control{name}: " + json.dumps(ag), flush=True)
     check(ag["top_edge_up_to_ties"] < 0.99
-          or ag["max_abs_best_logl_same_top"] > MEMSAVE_LOGL_ABS,
-          f"memsave control: a mask one site late passed the gates: {ag}")
+          or ag["max_abs_best_logl_same_top"] > tol,
+          f"memsave control{name}: a mask one site late passed the gates: "
+          f"{ag}")
     return ag
 
 
@@ -1498,6 +1712,106 @@ def memsave_phase() -> dict:
     return res
 
 
+def memsave_wide_phase(cells) -> dict:
+    """Phase 8b: ``--memsave`` past DNA G4 on phase 4's data, each cell
+    (``cells``: key -> dict of ``paths``, ``n`` reads, ``model``, the
+    kernel ``family``, ``pinv``, ``past8``, ``cluster``, ``resident`` (the
+    name of phase 4's run of the cell, or None to run it here with every
+    tied edge kept), ``qry`` (the reads, cut to MEMSAVE_WIDE_READS where
+    there are more), ``half`` and ``host_ref``) at budget 0 (every pair
+    streamed through the per-pair shape) and, with ``half``, at half the
+    host store (the cached prefix through the blocked shape), each
+    launching only its own instantiation, never the twin. Every run meets
+    phase 8's gates against the cell's resident run at the cell's own
+    tolerance (f32_steps of the resident run); then the negative control
+    on the LG+G4 cell.
+
+    A --memsave run places on a state built on the host, which rounds
+    otherwise than the resident run's card build. Under the mixtures on
+    random reads the two builds' placements lie up to 10 f32 steps apart,
+    and any two runs of the host build (budget 0, the covering budget,
+    ``--mesh``, the CPU in f32) within 3 (PERF.md §6). A ``host_ref``
+    cell therefore also runs the covering budget (1000 GB: the fused path
+    on the host build, blocked shape) and is held to it at f32_steps,
+    and to the resident run by the top edge up to ties and the best logl
+    within 1e-5 relative where the top edge is shared (the small
+    references' rule)."""
+    from epa_ng_tpu_torch.utils.synth import write_fasta
+    res = {}
+    for key, c in cells.items():
+        paths, n = c["paths"], c["n"]
+        if n > MEMSAVE_WIDE_READS:
+            n = MEMSAVE_WIDE_READS
+            d = os.path.join(OUT, f"data_ms_{key}")
+            os.makedirs(d, exist_ok=True)
+            paths = (paths[0], paths[1], os.path.join(d, "query.fasta"))
+            write_fasta(_head(c["qry"], n), paths[2])
+        kind = dict(model=c["model"], family=c["family"], pinv=c["pinv"],
+                    past8=c["past8"], cluster=c["cluster"])
+        r = {"reads": n}
+        base = c["resident"]
+        if base is None:
+            base = f"ms_{key}_resident"
+            r["resident"] = memsave_run(paths, n, base, None, **kind)
+        r["stream"] = memsave_run(paths, n, f"ms_{key}_stream", 0.0, **kind)
+        tiers = ["stream"]
+        if c["half"]:
+            half = r["stream"]["memsave_host_mb"] / 2 / 1e3
+            r["half"] = memsave_run(paths, n, f"ms_{key}_half", half, **kind)
+            r["half_gb"] = half
+            tiers.append("half")
+        if c["host_ref"]:
+            r["cover"] = cv = memsave_run(paths, n, f"ms_{key}_cover",
+                                          1000.0, **kind)
+            check(cv["per_pair_launches"] == 0 and cv["h2d_mb"] == 0,
+                  f"memsave {key} covering budget: "
+                  f"{cv['per_pair_launches']} per-pair launches, "
+                  f"{cv['h2d_mb']} MB streamed")
+        st = r["stream"]
+        check(st["memsave_cached_edges"] == 0 and st["blocked_launches"] == 0
+              and st["per_pair_launches"] > 0,
+              f"memsave {key} budget 0: cached {st['memsave_cached_edges']} "
+              f"edges, {st['blocked_launches']} blocked and "
+              f"{st['per_pair_launches']} per-pair launches")
+        if c["half"]:
+            hf = r["half"]
+            # some edges cached, and the rest streamed (less than at 0)
+            check(hf["memsave_cached_edges"] > 0
+                  and hf["blocked_launches"] > 0
+                  and hf["per_pair_launches"] > 0
+                  and 0 < hf["h2d_mb"] < st["h2d_mb"],
+                  f"memsave {key} half budget: cached "
+                  f"{hf['memsave_cached_edges']} edges, "
+                  f"{hf['blocked_launches']} blocked and "
+                  f"{hf['per_pair_launches']} per-pair launches, "
+                  f"{hf['h2d_mb']} MB streamed ({st['h2d_mb']} at 0)")
+        names = [f"ms_{key}_{t}" for t in tiers]
+        ref = f"ms_{key}_cover" if c["host_ref"] else base
+        pl = {k: read_jplace(os.path.join(OUT, k, "epa_result.jplace"))
+              for k in {base, ref, *names}}
+        check(all(len(p) == n for p in pl.values()),
+              f"memsave {key}: a run lost queries")
+        r["tol"] = tol = f32_steps(pl[base])
+        r["agreement"] = memsave_gates(pl, [(ref, x) for x in names], None,
+                                       tol)
+        if c["host_ref"]:
+            for x in names + [ref]:
+                r["agreement"][f"{base}_vs_{x}"] = ag = agreement(
+                    pl[base], pl[x], 1e-5)
+                check(ag["top_edge_up_to_ties"] >= 0.99
+                      and ag["max_rel_best_logl_same_top"] <= 1e-5,
+                      f"memsave {x} against the card build {base}: {ag}")
+        print(f"memsave {key} agreement: " + json.dumps(r["agreement"]),
+              flush=True)
+        res[key] = r
+    c = cells["aa"]
+    res["control_aa"] = memsave_control(
+        c["paths"], c["n"],
+        read_jplace(os.path.join(OUT, "ms_aa_stream", "epa_result.jplace")),
+        model=c["model"], name="_aa", tol=res["aa"]["tol"])
+    return res
+
+
 def place_msa(eng, qry, chunk):
     """Phase 9b: place ``qry`` with ``eng`` through the CLI's pipeline
     functions (encode, collapse duplicates, ``place_encoded_async``, then
@@ -1538,14 +1852,15 @@ def bit_for_bit(a, b) -> float:
     return sum(a[q] == b[q] for q in a) / len(a)
 
 
-def mesh_gates(pl, name, other):
+def mesh_gates(pl, name, other, tol=MEMSAVE_LOGL_ABS):
     """Phase 9's agreement of two runs by name: top edge up to ties on >=
-    99% of the queries and the best logl within MEMSAVE_LOGL_ABS where
-    they share the top edge (phase 8's gates: a mesh run's state is built
-    on the CPU, so it rounds otherwise than a card-built one), with the
-    largest absolute best-logl difference and the share of queries that
-    are bit for bit."""
-    ag = memsave_gates(pl, [(name, other)], None)[f"{name}_vs_{other}"]
+    99% of the queries and the best logl within ``tol`` (MEMSAVE_LOGL_ABS,
+    or a cell's f32_steps) where they share the top edge (phase 8's gates:
+    a mesh run's state is built on the CPU, so it rounds otherwise than a
+    card-built one), with the largest absolute best-logl difference and
+    the share of queries that are bit for bit."""
+    ag = memsave_gates(pl, [(name, other)], None,
+                       tol)[f"{name}_vs_{other}"]
     ag["bit_for_bit"] = bit_for_bit(pl[name], pl[other])
     return ag
 
@@ -1558,39 +1873,70 @@ def check_mesh_main(tag, st, mesh):
 
 
 def mesh_cli_phase(paths, ppaths, n_queries, data, pdata, plain,
-                   device="cuda") -> dict:
+                   device="cuda", wide=()) -> dict:
     """Phase 9a: ``--mesh 1x1`` through the CLI on the headline data (the
     JAX bench's mesh1x1 cell: the sharded step with the blocked kernel on
     its one shard), and on the +I data, against phase 4's and 4b's
-    resident runs; q/s and its ratio to the resident run's ``plain``."""
+    resident runs; q/s and its ratio to the resident run's ``plain``.
+    Then the ``wide`` cells past DNA G4 (key, paths, reads, model, the
+    resident run's name, family, pinv, past8, cluster, and the name of a
+    run of the host build or None): protein, LG+I+G4, the mixture and
+    LG+G16 at chunk 512, every tied edge kept, each against its resident
+    run at f32_steps of that run; a cell with a host-build run (the
+    mixture: phase 8b's covering --memsave run; a --mesh state is built on
+    the host too) is held to that one at f32_steps, and to the resident
+    run as phase 8b holds it (:func:`memsave_wide_phase`)."""
     res = {}
-    for key, p, d, model, base, pinv in (
-            ("mesh1x1", paths, data, MODEL, "main", False),
-            ("pinv_mesh1x1", ppaths, pdata, PINV_MODEL, "main_pinv", True)):
-        st = main_path(p, n_queries, d[3], device, model=model,
-                       name=f"main_{key}", extra=("--mesh", "1x1"))
-        check_main(key, st, "k4_launches", pinv=pinv)
+    cells = [(key, p, n_queries, d[3], model, base, "k4_launches", pinv,
+              False, False, 1024, (), MEMSAVE_LOGL_ABS, None)
+             for key, p, d, model, base, pinv in (
+                 ("mesh1x1", paths, data, MODEL, "main", False),
+                 ("pinv_mesh1x1", ppaths, pdata, PINV_MODEL, "main_pinv",
+                  True))]
+    for (key, p, n, model, base, family, pinv, past8, cluster,
+         host) in wide:
+        tol = f32_steps(read_jplace(os.path.join(OUT, base,
+                                                 "epa_result.jplace")))
+        cells.append((key, p, n, None, model, base, family, pinv, past8,
+                      cluster, MEMSAVE_CHUNK, MEMSAVE_KEEP, tol, host))
+    for (key, p, n, true_edges, model, base, family, pinv, past8, cluster,
+         chunk, keep, tol, host) in cells:
+        st = main_path(p, n, true_edges, device, model=model,
+                       name=f"main_{key}", chunk=chunk,
+                       extra=("--mesh", "1x1", *keep))
+        check_main(key, st, family, pinv=pinv, past8=past8, cluster=cluster)
         check_mesh_main(key, st, "1x1")
-        pl = {key: read_jplace(os.path.join(OUT, f"main_{key}",
-                                            "epa_result.jplace")),
-              base: read_jplace(os.path.join(OUT, base,
-                                             "epa_result.jplace"))}
-        st["agreement"] = mesh_gates(pl, key, base)
+        pl = {k: read_jplace(os.path.join(OUT, k, "epa_result.jplace"))
+              for k in (f"main_{key}", base, host) if k}
+        pl[key] = pl.pop(f"main_{key}")
+        # a run that keeps every tied edge goes second (memsave_gates)
+        st["agreement"] = (mesh_gates(pl, host or base, key, tol) if keep
+                           else mesh_gates(pl, key, base, tol))
+        if host:
+            st["agreement_card_build"] = ag = agreement(pl[base], pl[key],
+                                                        1e-5)
+            check(ag["top_edge_up_to_ties"] >= 0.99
+                  and ag["max_rel_best_logl_same_top"] <= 1e-5,
+                  f"--mesh 1x1 {key} against the card build {base}: {ag}")
         st["ratio_vs_plain"] = st["qps"] / plain[base]["qps"]
         print(f"--mesh 1x1 {key}: " + json.dumps(st), flush=True)
         res[key] = st
     return res
 
 
-def mesh_library_phase(device="cuda") -> dict:
+def mesh_library_phase(device="cuda", data=None, model=MODEL,
+                       meshes=((1, 4), (2, 2)), chunk=BIGTREE_CHUNK,
+                       tag="bigtree") -> dict:
     """Phase 9b: ep > 1 on the one card through the library, on the JAX
-    bench's bigtree evolved data: the engine built on the CPU (as the CLI
-    builds it under --mesh) with ``make_mesh(1, 4, [cuda:0] * 4)`` and
-    ``make_mesh(2, 2, [cuda:0] * 4)`` attached, placing through the CLI's
-    pipeline functions, against the resident engine on the card; then one
-    forced exact redo on a few pairs through the mesh engine's
-    ``_thorough`` (the per-pair kernel shape on windows of the host store)
-    against the resident engine's."""
+    bench's bigtree evolved data (or ``data`` under ``model``: the LG+G16
+    cell, the K = 20 cluster on every shard): the engine built on the CPU
+    (as the CLI builds it under --mesh) with each of ``meshes`` (dp, ep)
+    over ``[cuda:0] * 4`` attached, placing through the CLI's pipeline
+    functions, against the resident engine on the card; then one forced
+    exact redo on a few pairs through the mesh engine's ``_thorough``
+    (the per-pair kernel shape on windows of the host store) against the
+    resident engine's. The bigtree's runs are held to MEMSAVE_LOGL_ABS,
+    another cell's to f32_steps of its resident run."""
     import numpy as np
     import torch
 
@@ -1599,48 +1945,52 @@ def mesh_library_phase(device="cuda") -> dict:
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.parallel.mesh import make_mesh
     from epa_ng_tpu_torch.utils.options import Options
-    n_taxa, sites, n, seed = BIGTREE_CELL
-    t0 = time.perf_counter()
-    (tree, ref, qry, _), _ = make_data(n_taxa, sites, n, seed,
-                                       os.path.join(OUT, "data_bigtree"))
-    print(f"bigtree data: {n_taxa} taxa x {sites} sites, {n} evolved "
-          f"queries in {time.perf_counter() - t0:.2f} s", flush=True)
-    make = lambda dev: PlacementEngine(tree, ref, Model.from_string(MODEL),
+    if data is None:
+        n_taxa, sites, n, seed = BIGTREE_CELL
+        t0 = time.perf_counter()
+        (tree, ref, qry, _), _ = make_data(n_taxa, sites, n, seed,
+                                           os.path.join(OUT, "data_bigtree"))
+        print(f"bigtree data: {n_taxa} taxa x {sites} sites, {n} evolved "
+              f"queries in {time.perf_counter() - t0:.2f} s", flush=True)
+    else:
+        tree, ref, qry, _ = data
+        n = len(list(qry))
+    make = lambda dev: PlacementEngine(tree, ref, Model.from_string(model),
                                        Options(compute_dtype="f32"),
                                        device=dev)
     card = torch.device(device, 0) if device == "cuda" else torch.device(
         device)
     resident = make(card)
     pl = {}
-    pl["resident"], wall = place_msa(resident, qry, BIGTREE_CHUNK)
-    res = {"resident": dict(qps=n / wall, placing_s=wall)}
-    print("bigtree resident (one card): " + json.dumps(res["resident"]),
+    pl["resident"], wall = place_msa(resident, qry, chunk)
+    tol = MEMSAVE_LOGL_ABS if data is None else f32_steps(pl["resident"])
+    res = {"resident": dict(qps=n / wall, placing_s=wall), "tol": tol}
+    print(f"{tag} resident (one card): " + json.dumps(res["resident"]),
           flush=True)
-    chunks = -(-n // BIGTREE_CHUNK)
+    chunks = -(-n // chunk)
     engines = {}
-    for dp, ep in ((1, 4), (2, 2)):
+    for dp, ep in meshes:
         key = f"{dp}x{ep}"
         t0 = time.perf_counter()
         eng = make("cpu")
         build_s = time.perf_counter() - t0
         eng.attach_mesh(make_mesh(dp, ep, [card] * 4))
         blo_newton.reset_counts()
-        pl[key], wall = place_msa(eng, qry, BIGTREE_CHUNK)
+        pl[key], wall = place_msa(eng, qry, chunk)
         counts = blo_newton.counts()
         st = dict(qps=n / wall, placing_s=wall, build_s=build_s,
                   pad_edges=eng._sharded.pad,
                   shard_bytes=eng._sharded.shard_nbytes(), **counts,
                   **eng.newton_work.totals())
-        check(st["pad_edges"] == (-(2 * n_taxa - 3)) % ep,
-              f"mesh {key}: {st['pad_edges']} pad edges")
+        check(st["pad_edges"] == (-resident.num_edges) % ep,
+              f"{tag} mesh {key}: {st['pad_edges']} pad edges")
         check(st["blocked_launches"] >= ep * chunks
               and st["twin_launches"] == 0,
-              f"mesh {key}: {st['blocked_launches']} blocked launches for "
-              f"{ep} shards x {chunks} chunks, {st['twin_launches']} twin "
-              "launches")
-        st["agreement"] = mesh_gates(pl, key, "resident")
-        print(f"mesh {key} (bigtree, one card): " + json.dumps(st),
-              flush=True)
+              f"{tag} mesh {key}: {st['blocked_launches']} blocked launches "
+              f"for {ep} shards x {chunks} chunks, {st['twin_launches']} "
+              "twin launches")
+        st["agreement"] = mesh_gates(pl, key, "resident", tol)
+        print(f"{tag} mesh {key} (one card): " + json.dumps(st), flush=True)
         res[key] = st
         engines[key] = eng
     # the forced exact redo: 64 queries x their 4 best preplacement
@@ -1650,7 +2000,7 @@ def mesh_library_phase(device="cuda") -> dict:
     ec = resident.encode_msa(_head(qry, 64))
     top = np.argsort(-resident.preplace(ec.codes, ec.ranges), axis=1,
                      kind="stable")[:, :4]
-    pair_q = np.repeat(np.arange(64), 4).astype(np.int32)
+    pair_q = np.repeat(np.arange(len(ec)), 4).astype(np.int32)
     pair_e = top.reshape(-1).astype(np.int32)
     blo_newton.reset_counts()
     got = eng._thorough(pair_e, pair_q, ec.codes, ec.ranges)
@@ -1659,13 +2009,14 @@ def mesh_library_phase(device="cuda") -> dict:
     diff = float(np.max(np.abs(got[0] - want[0])))
     res["exact_redo"] = dict(pairs=len(pair_e), max_abs_logl=diff,
                              per_pair_launches=counts["per_pair_launches"],
-                             blocked_launches=counts["blocked_launches"])
-    print("mesh 1x4 exact redo: " + json.dumps(res["exact_redo"]),
+                             blocked_launches=counts["blocked_launches"],
+                             cluster_launches=counts["cluster_launches"])
+    print(f"{tag} mesh 1x4 exact redo: " + json.dumps(res["exact_redo"]),
           flush=True)
     check(counts["per_pair_launches"] > 0 and counts["blocked_launches"] == 0,
-          f"mesh exact redo launches {counts}")
-    check(diff <= MEMSAVE_LOGL_ABS, f"mesh exact redo: pair logl {diff} off "
-          f"the resident engine's (> {MEMSAVE_LOGL_ABS})")
+          f"{tag} mesh exact redo launches {counts}")
+    check(diff <= tol, f"{tag} mesh exact redo: pair logl {diff} off the "
+          f"resident engine's (> {tol})")
     return res
 
 
@@ -1852,7 +2203,7 @@ def main(argv=()) -> int:
             print(smi)
             return 0
 
-        # phase 2: build both libraries side by side
+        # phase 2: build every library side by side, one nvcc each
         t0 = time.perf_counter()
         try:
             blo_newton.build_all()
@@ -1861,20 +2212,20 @@ def main(argv=()) -> int:
         build_s = time.perf_counter() - t0
         ptxas = [s for log in blo_newton.build_logs.values()
                  for s in ptxas_summary(log)]
-        print(f"build: {build_s:.2f} s (both libraries); ptxas: "
+        print(f"build: {build_s:.2f} s (every library); ptxas: "
               f"{json.dumps(ptxas)}", flush=True)
-        # the cluster's instantiations free of spills: {single, mixture} x
-        # home in the library without +I, single x home in the +I one (a
-        # library loaded from an earlier build prints no ptxas lines)
+        # the cluster's instantiations free of spills: home x {single,
+        # mixture} without +I, home x single with it, two in each K = 20
+        # library (one loaded from an earlier build prints no ptxas lines)
         cluster = [p for p in ptxas if " cluster:" in p]
-        built = blo_newton.build_logs
-        check(len(cluster) == 4 * bool(built[False]) + 2 * bool(built[True])
+        built = [key for key, log in blo_newton.build_logs.items() if log]
+        check(len(cluster) == 2 * sum(part != "dna" for _, part in built)
               and all(p.endswith(" 0 B spill") for p in cluster),
               f"the cluster instantiations spill or are missing: {cluster}")
         # the K = 4 runtime-R instantiations in the shared home (past 8
         # rates) free of spills within 168 registers, 3 CTAs an SM
         r0 = [p for p in ptxas if p.startswith("R0 shared")]
-        check(len(r0) == bool(built[False]) + bool(built[True])
+        check(len(r0) == sum(part == "dna" for _, part in built)
               and all(p.endswith(" 0 B spill")
                       and int(p.split(": ")[1].split()[0]) <= 168
                       for p in r0),
@@ -2048,6 +2399,17 @@ def main(argv=()) -> int:
         budgets = exact_budgets("cuda")
         print("exact budgets GTR+G16: " + json.dumps(budgets), flush=True)
         done("5 exact budgets")
+        budgets_wide = exact_budgets_wide("cuda")
+        print("exact budgets GTR+G4, LG+G4, mixture: "
+              + json.dumps(budgets_wide), flush=True)
+        done("5 exact budgets wide")
+        # phase 5b: the flags no earlier phase runs on the card
+        flags = flags_phase("cuda", {
+            "main": (paths, n_queries, data[3], MODEL, "k4_launches", 1024),
+            "main_aa": (apaths, n_aa, adata[3], AA_MODEL, "k20_launches",
+                        512)})
+        print("flags: " + json.dumps(flags), flush=True)
+        done("5b")
 
         # phase 6: where the device time goes
         prof = profile_main(paths, "cuda")
@@ -2077,14 +2439,57 @@ def main(argv=()) -> int:
         # and read just after
         ms = memsave_phase()
         done("8")
+        # phase 8b: --memsave past DNA G4 on phase 4's cells
+        cell = lambda paths, n, model, family, resident, pinv=False, \
+            past8=False, half=False, qry=None: dict(
+                paths=paths, n=n, model=model, family=family,
+                resident=resident, pinv=pinv, past8=past8,
+                cluster=past8 and family != "k4_launches", half=half,
+                qry=qry, host_ref=family == "mixture_launches")
+        ms_wide = memsave_wide_phase({
+            "aa": cell(apaths, n_aa, AA_MODEL, "k20_launches", "main_aa",
+                       half=True),
+            "aa_pinv": cell(appaths, n_aa, AA_PINV_MODEL, "k20_launches",
+                            None, pinv=True),
+            "mix": cell(mpaths, n_mix, MIX_MODEL, "mixture_launches",
+                        "main_mix"),
+            "aa_g16": cell(apaths, n_aa, AA_G16_MODEL, "k20_launches",
+                           "main_aa_g16", past8=True, half=True),
+            "aa_pinv_g16": cell(appaths, n_aa, AA_PINV_G16_MODEL,
+                                "k20_launches", "main_aa_pinv_g16",
+                                pinv=True, past8=True),
+            "mix16": cell(mpaths, n_mix, MIX16_MODEL, "mixture_launches",
+                          "main_mix16", past8=True),
+            "g16": cell(paths, n_queries, G16_MODEL, "k4_launches", None,
+                        past8=True, qry=data[2]),
+            "g16_pinv": cell(ppaths, n_queries, G16_PINV_MODEL,
+                             "k4_launches", None, pinv=True, past8=True,
+                             qry=pdata[2])})
+        done("8b")
 
         # phase 9: --mesh, a mesh of ep shards on the one card, two
         # processes on the one card (--distributed, --adaptive-split), and
         # the refusals; each path with its counts reset just before it
-        mesh_cli = mesh_cli_phase(paths, ppaths, n_queries, data, pdata,
-                                  {"main": stats, "main_pinv": pstats})
+        mesh_cli = mesh_cli_phase(
+            paths, ppaths, n_queries, data, pdata,
+            {"main": stats, "main_pinv": pstats, "main_aa": astats,
+             "ms_aa_pinv_resident": ms_wide["aa_pinv"]["resident"],
+             "main_mix": mstats, "main_aa_g16": agstats},
+            wide=[("aa_mesh1x1", apaths, n_aa, AA_MODEL, "main_aa",
+                   "k20_launches", False, False, False, None),
+                  ("aa_pinv_mesh1x1", appaths, n_aa, AA_PINV_MODEL,
+                   "ms_aa_pinv_resident", "k20_launches", True, False,
+                   False, None),
+                  ("mix_mesh1x1", mpaths, n_mix, MIX_MODEL, "main_mix",
+                   "mixture_launches", False, False, False, "ms_mix_cover"),
+                  ("aa_g16_mesh1x1", apaths, n_aa, AA_G16_MODEL,
+                   "main_aa_g16", "k20_launches", False, True, True,
+                   None)])
         done("9a")
         mesh_lib = mesh_library_phase()
+        mesh_aa_g16 = mesh_library_phase(data=adata, model=AA_G16_MODEL,
+                                         meshes=((1, 4),),
+                                         chunk=MEMSAVE_CHUNK, tag="LG+G16")
         done("9b")
         mesh_dist = distributed_phase(paths, n_queries)
         done("9c")
@@ -2097,7 +2502,8 @@ def main(argv=()) -> int:
         mesh_pp = {
             "bigtree_exact_redo":
                 mesh_lib["exact_redo"]["per_pair_launches"],
-            **{k: mesh_cli[k]["per_pair_launches"] for k in mesh_cli},
+            **{k: mesh_cli[k]["per_pair_launches"]
+               for k in ("mesh1x1", "pinv_mesh1x1")},
             **{f"bigtree_{k}": mesh_lib[k]["per_pair_launches"]
                for k in ("1x4", "2x2")}}
         ms_tiers, ms_small = ms["tiers"], ms["small"]
@@ -2107,6 +2513,27 @@ def main(argv=()) -> int:
             k: ms_small[k]["launches"]["per_pair_launches"] for k in keys}
         ms_pp = ms_launches("per_pair_launches",
                             ("stream", "half", "cached"))
+
+
+        def wide_ms(key):
+            """Phase 8b's launches of a cell: per-pair at budget 0,
+            per-pair and blocked at half the store, blocked at the
+            covering budget."""
+            r = ms_wide[key]
+            out = {f"{key}_stream_per_pair": r["stream"]["per_pair_launches"]}
+            if "half" in r:
+                out[f"{key}_half_per_pair"] = r["half"]["per_pair_launches"]
+                out[f"{key}_half_blocked"] = r["half"]["blocked_launches"]
+            if "cover" in r:
+                out[f"{key}_cover_blocked"] = r["cover"]["blocked_launches"]
+            return out
+
+        def wide_mesh(*keys, **more):
+            """Phase 9's shard launches of cells past DNA G4 (blocked on
+            each shard; ``more``: other counts by name) and their sum."""
+            out = {k: mesh_cli[k]["blocked_launches"] for k in keys}
+            out.update(more)
+            return dict(launches_mesh=out, mesh_launches=sum(out.values()))
 
         tol = {"logl_abs_tol": LOGL_ABS_TOL, "length_q90_tol": LEN_Q90_TOL}
         shapes = lambda p, keys=("blocked", "blocked_widest_shared",
@@ -2181,18 +2608,27 @@ def main(argv=()) -> int:
                 "blo_newton_counted", "epa_ng_tpu/ops/pallas_blo.py:86",
                 stats["counted_launches"] + pstats["counted_launches"],
                 par["counted"],
-                launches_note="counted launches over both DNA main paths",
+                launches_note="counted launches over both DNA main paths; "
+                "launches_memsave: every --memsave run of phase 8b, each "
+                "launch with its counters",
+                launches_memsave=sum(
+                    r[t]["counted_launches"] for k, r in ms_wide.items()
+                    if k != "control_aa"
+                    for t in ("stream", "half", "cover") if t in r),
                 **team(par), parity={"counted": par["counted"], **tol}),
             kernel_entry(
                 "blo_newton K=20", "epa_ng_tpu/ops/pallas_blo.py:117",
                 astats["k20_launches"], apar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_memsave=wide_ms("aa"), **wide_mesh("aa_mesh1x1"),
                 instantiation="LG+G4{0.8}: K = 20, one matrix, R = 4",
                 **team(apar), parity={**shapes(apar), **tol}),
             kernel_entry(
                 "blo_newton mixture", "epa_ng_tpu/ops/pallas_blo.py:117",
                 mstats["mixture_launches"], mpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_memsave=wide_ms("mix"),
+                **wide_mesh("mix_mesh1x1"),
                 instantiation=f"{MIX_MODEL}: K = 20, per-rate tables and "
                 "tip, R = 4", **team(mpar),
                 parity={**shapes(mpar), **tol}),
@@ -2200,6 +2636,8 @@ def main(argv=()) -> int:
                 "blo_newton_pinv K=20", "epa_ng_tpu/ops/pallas_blo.py:174",
                 aa_ic["pinv_launches"], appar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                launches_memsave=wide_ms("aa_pinv"),
+                **wide_mesh("aa_pinv_mesh1x1"),
                 instantiation="LG+I{0.2}+G4{0.8}: K = 20 with +I, R = 4",
                 launches_note="launches of the card's LG+IC+G4 small "
                 "reference run (phase 5): protein +I has no main path of "
@@ -2209,6 +2647,7 @@ def main(argv=()) -> int:
                 "blo_newton R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
                 gstats["past8_launches"], gpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_memsave=wide_ms("g16"),
                 launches_exact_budgets={k: v["launches"]
                                         for k, v in budgets.items()},
                 instantiation="GTR+G16: K = 4, the runtime-R instantiation, "
@@ -2217,6 +2656,7 @@ def main(argv=()) -> int:
                 "blo_newton_pinv R=16", "epa_ng_tpu/ops/pallas_blo.py:174",
                 r10["past8_launches"], gppar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                launches_memsave=wide_ms("g16_pinv"),
                 instantiation="GTR+I{0.2}+G16: K = 4 with +I, the runtime-R "
                 "instantiation, R = 16",
                 launches_note="launches of the card's +I+R10 small "
@@ -2227,6 +2667,11 @@ def main(argv=()) -> int:
                 "blo_newton K=20 R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
                 agstats["cluster_launches"], agpar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_memsave=wide_ms("aa_g16"),
+                **wide_mesh("aa_g16_mesh1x1", **{
+                    "aa_g16_1x4": mesh_aa_g16["1x4"]["blocked_launches"],
+                    "aa_g16_1x4_exact_redo":
+                        mesh_aa_g16["exact_redo"]["per_pair_launches"]}),
                 instantiation="LG+G16{0.8}: K = 20, a cluster of 2 CTAs a "
                 "pair, 8 rates each, R = 16", **team(agpar),
                 parity={**shapes(agpar), **tol}),
@@ -2235,6 +2680,7 @@ def main(argv=()) -> int:
                 "epa_ng_tpu/ops/pallas_blo.py:174",
                 agpstats["cluster_launches"], agppar["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:104",
+                launches_memsave=wide_ms("aa_pinv_g16"),
                 instantiation="LG+I{0.2}+G16{0.8}: K = 20 with +I, a "
                 "cluster of 2 CTAs a pair, R = 16", **team(agppar),
                 parity={**shapes(agppar), **tol}),
@@ -2242,6 +2688,7 @@ def main(argv=()) -> int:
                 "blo_newton mixture R=16", "epa_ng_tpu/ops/pallas_blo.py:117",
                 m16stats["cluster_launches"], m16par["blocked"],
                 also_replaces="epa_ng_tpu/ops/pallas_blo.py:65",
+                launches_memsave=wide_ms("mix16"),
                 instantiation=f"{MIX16_MODEL}: K = 20, per-rate tables and "
                 "tip, a cluster of 2 CTAs a pair, R = 16", **team(m16par),
                 parity={**shapes(m16par), **tol}),

@@ -254,12 +254,14 @@
 // a few logl units on about one pair in two thousand, where f32 is
 // borderline (``python3 chip_smoke.py --fmad-ab``; PERF.md).
 //
-// The source is compiled twice, with BLO_HAS_PINV 0 and 1, into two
-// libraries that build in parallel; each holds the 18 DNA instantiations
-// (rate count 1-8 and runtime x sumtable home) of its flavour, and the
-// K = 20 ones ({single, mixture} x home x {up to 8 rates, cluster}
-// without +I, single x home x the same with it; the JAX package takes no
-// +I with a mixture).
+// The source is compiled five times, into libraries that build in
+// parallel (one nvcc each): BLO_HAS_PINV 0 and 1 (without and with +I)
+// times BLO_PART, the part of the instantiations a library holds
+// (ops/blo_kernel.py::PARTS): 0 the 18 DNA ones (rate count 1-8 and
+// runtime x sumtable home), 1 the K = 20 single-matrix ones (home x {up
+// to 8 rates, cluster}) and 2, without +I only, the K = 20 mixture ones
+// (the JAX package takes no +I with a mixture). A launch of another part
+// returns -1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -271,6 +273,12 @@
 
 #ifndef BLO_HAS_PINV
 #define BLO_HAS_PINV 0
+#endif
+#define BLO_PART_DNA 0
+#define BLO_PART_TEAM 1
+#define BLO_PART_MIX 2
+#ifndef BLO_PART
+#error "BLO_PART selects the instantiations to build (0, 1 or 2)"
 #endif
 
 namespace {
@@ -1854,15 +1862,20 @@ int blo_newton_team(const Args* a, int num_states, int R, int mixture,
   }
   if (num_states == 20) {
     if (mixture) {
-#if BLO_HAS_PINV
-      return -1;  // no +I with a matrix mixture
-#else
+#if BLO_PART == BLO_PART_MIX && !BLO_HAS_PINV
       return launch_team<true>(a, R, width, device_t, geo, stream);
+#else
+      return -1;  // another library's part; no +I with a matrix mixture
 #endif
     }
+#if BLO_PART == BLO_PART_TEAM
     return launch_team<false>(a, R, width, device_t, geo, stream);
+#else
+    return -1;
+#endif
   }
   if (num_states != K || mixture) return -1;
+#if BLO_PART == BLO_PART_DNA
   switch (R) {
     case 1: return launch_dna<1>(a, 1, width, device_t, geo, stream);
     case 2: return launch_dna<2>(a, 2, width, device_t, geo, stream);
@@ -1874,6 +1887,9 @@ int blo_newton_team(const Args* a, int num_states, int R, int mixture,
     case 8: return launch_dna<8>(a, 8, width, device_t, geo, stream);
     default: return launch_dna<0>(a, R, width, device_t, geo, stream);
   }
+#else
+  return -1;
+#endif
 }
 
 }  // namespace
@@ -1942,7 +1958,7 @@ const char* blo_newton_error_string(int code) {
     return "unsupported state count, rate count or mixture (4 or 20 "
            "states; at 4 the rates whose tables fit shared memory beside "
            "a 32-site tile of T, at 20 up to 64; mixtures at 20 states "
-           "without +I)";
+           "without +I), or a launch of another library's part";
   }
   if (code == -2) {
     return "missing +I input, counter output or K = 4 pair counter";

@@ -685,6 +685,20 @@ def blo_byte_count(spans, num_rates: int, has_pinv: bool = False,
 # CUDA kernel
 
 
+# the kernel's instantiations in parts, one shared library each (the
+# source's BLO_PART): K = 4, K = 20 with one matrix, K = 20 mixtures
+PARTS = ("dna", "team", "mix")
+# the (has_pinv, part) libraries: no +I with a matrix mixture
+LIBRARIES = tuple((pinv, part) for pinv in (False, True) for part in PARTS
+                  if not (pinv and part == "mix"))
+
+
+def library_part(num_states: int, mixture: bool) -> str:
+    """The part of the kernel's instantiations (:data:`PARTS`) that holds
+    a launch at ``num_states`` (a matrix ``mixture`` or not)."""
+    return "dna" if num_states == 4 else ("mix" if mixture else "team")
+
+
 class _BloNewton:
     """The CUDA kernel behind a callable. Launch counts (never plain-version
     calls): ``launches`` all launches, ``pinv_launches`` those with the +I
@@ -696,12 +710,15 @@ class _BloNewton:
     ``k20_launches`` (protein, one matrix) and ``mixture_launches``
     (protein matrix mixtures); and one per call shape: ``blocked_launches``
     (pairs reading windows of the full stores, K1/K2) and
-    ``per_pair_launches`` (pre-gathered per-pair windows, K3/K4). The two
-    shared libraries (without and with +I) are built with nvcc at first
-    use into ``epa_ng_tpu_torch/build/``; :meth:`build_all` builds both at
-    once. ``fmad`` turns on nvcc's mul+add contraction (FMA); it is off,
-    so the kernel rounds as its plain version does (csrc/blo_newton.cu),
-    and only the FMA timing of ``chip_smoke.py --fmad-ab`` turns it on."""
+    ``per_pair_launches`` (pre-gathered per-pair windows, K3/K4). The
+    shared libraries, one per flavour (without and with +I) and part of
+    the instantiations (:data:`LIBRARIES`: K = 4, K = 20 with one matrix,
+    K = 20 mixtures), are built with nvcc at first use into
+    ``epa_ng_tpu_torch/build/``; :meth:`build_all` builds all five at
+    once, one nvcc each. ``fmad`` turns on nvcc's mul+add contraction
+    (FMA); it is off, so the kernel rounds as its plain version does
+    (csrc/blo_newton.cu), and only the FMA timing of ``chip_smoke.py
+    --fmad-ab`` turns it on."""
 
     _COUNTS = ("launches", "pinv_launches", "counted_launches",
                "past8_launches", "cluster_launches", "k4_launches",
@@ -710,10 +727,10 @@ class _BloNewton:
 
     def __init__(self, fmad: bool = False):
         self._counts = dict.fromkeys(self._COUNTS, 0)
-        self.build_logs = {False: "", True: ""}
+        self.build_logs = dict.fromkeys(LIBRARIES, "")
         self.fmad = fmad
         self._libs = {}
-        self._locks = {False: threading.Lock(), True: threading.Lock()}
+        self._locks = {key: threading.Lock() for key in LIBRARIES}
         self._count_lock = threading.Lock()
 
     @property
@@ -728,34 +745,36 @@ class _BloNewton:
         with self._count_lock:
             return dict(self._counts)
 
-    def build(self, has_pinv: bool = False):
-        """Compile csrc/blo_newton.cu for one flavour (if stale) and load
-        it; idempotent. Raises RuntimeError with nvcc's output on failure."""
-        with self._locks[has_pinv]:
-            lib = self._libs.get(has_pinv)
+    def build(self, has_pinv: bool = False, part: str = "dna"):
+        """Compile csrc/blo_newton.cu for one flavour and part of the
+        instantiations (if stale) and load it; idempotent. Raises
+        RuntimeError with nvcc's output on failure."""
+        key = (has_pinv, part)
+        with self._locks[key]:
+            lib = self._libs.get(key)
             if lib is not None:
                 return lib
             os.makedirs(_BUILD_DIR, exist_ok=True)
             fmad = "true" if self.fmad else "false"
             so = os.path.join(
                 _BUILD_DIR,
-                f"libblo_newton_pinv{int(has_pinv)}_fmad_{fmad}.so")
+                f"libblo_newton_pinv{int(has_pinv)}_{part}_fmad_{fmad}.so")
             if (not os.path.exists(so)
                     or os.path.getmtime(so) < os.path.getmtime(_SRC)):
                 nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
                 tmp = f"{so}.{os.getpid()}.tmp"
+                defs = (f"-DBLO_HAS_PINV={int(has_pinv)}",
+                        f"-DBLO_PART={PARTS.index(part)}")
                 cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                        "-std=c++17", "-O3", f"-fmad={fmad}", "-shared",
-                       f"-DBLO_HAS_PINV={int(has_pinv)}",
-                       "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-                       _SRC]
+                       *defs, "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+                       tmp, _SRC]
                 res = subprocess.run(cmd, capture_output=True, text=True)
-                self.build_logs[has_pinv] = res.stdout + res.stderr
+                self.build_logs[key] = res.stdout + res.stderr
                 if res.returncode != 0:
                     raise RuntimeError(
-                        "nvcc failed to build csrc/blo_newton.cu "
-                        f"(BLO_HAS_PINV={int(has_pinv)}):\n"
-                        + self.build_logs[has_pinv])
+                        f"nvcc failed to build csrc/blo_newton.cu "
+                        f"({' '.join(defs)}):\n" + self.build_logs[key])
                 os.replace(tmp, so)
             lib = ctypes.CDLL(so)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -767,7 +786,7 @@ class _BloNewton:
             lib.blo_newton_team_geometry.argtypes = [i32] * 5 + [ptr]
             lib.blo_newton_error_string.restype = ctypes.c_char_p
             lib.blo_newton_error_string.argtypes = [i32]
-            self._libs[has_pinv] = lib
+            self._libs[key] = lib
             return lib
 
     def team_geometry(self, num_states: int, R: int, width: int,
@@ -781,7 +800,7 @@ class _BloNewton:
         a cluster of one), which set the persistent grid; ``device_t`` as
         with a device-memory scratch. All but ``active_clusters``, which
         the card's GPCs set, are :func:`kernel_geometry`'s."""
-        lib = self.build(has_pinv)
+        lib = self.build(has_pinv, library_part(num_states, mixture))
         geo = (ctypes.c_int * 7)()
         rc = lib.blo_newton_team_geometry(num_states, R, int(mixture), width,
                                           int(device_t), geo)
@@ -793,9 +812,10 @@ class _BloNewton:
                     regs=geo[4], cluster=geo[5], active_clusters=geo[6])
 
     def build_all(self):
-        """Build both flavours with two nvcc processes side by side."""
-        with ThreadPoolExecutor(2) as ex:
-            for fut in [ex.submit(self.build, f) for f in (False, True)]:
+        """Build every library (:data:`LIBRARIES`) with one nvcc process
+        each, side by side."""
+        with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+            for fut in [ex.submit(self.build, *key) for key in LIBRARIES]:
                 fut.result()
 
     def __call__(self, tables, tU, tV, tQ, e_ids, q_ids, begins, spans,
@@ -848,7 +868,7 @@ class _BloNewton:
                          or ls.dtype != torch.float32):
             raise ValueError("blo_newton: +I takes f32 invq [Q,S], ls [E,S] "
                              "and omp")
-        lib = self.build(has_pinv)
+        lib = self.build(has_pinv, library_part(K, mixture))
         f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
         i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
         tU_c, tV_c, tQ_c = tU.contiguous(), tV.contiguous(), tQ.contiguous()

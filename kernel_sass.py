@@ -3,7 +3,7 @@ loops, as compiled for the card.
 
     python3 kernel_sass.py [ROOT] [--rc 0] [--json OUT]
 
-Builds both libraries of the checkout ROOT (default: this one) with its
+Builds every library of the checkout ROOT (default: this one) with its
 own ``ops/blo_kernel.py``, prints nvcc's ``-Xptxas -v`` summary of every
 instantiation (``chip_smoke.ptxas_summary``), then disassembles the K = 4
 instantiations of rate count ``--rc`` (0: the runtime-R one, past 8
@@ -125,8 +125,8 @@ def main(argv) -> int:
                       r"([01])ELb([01])E")
     report = {"ptxas": ptxas, "loops": {}}
     for pinv in (False, True):
-        so = os.path.join(bk._BUILD_DIR,
-                          f"libblo_newton_pinv{int(pinv)}_fmad_false.so")
+        so = os.path.join(
+            bk._BUILD_DIR, f"libblo_newton_pinv{int(pinv)}_dna_fmad_false.so")
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
                               text=True, check=True).stdout
         for name, insns in sorted(functions(sass).items()):

@@ -674,31 +674,53 @@ def _past_eight_rates(case, R, home, shared_width):
                                              counters=True, **kw))
 
 
+# the per-pair shape's cases: (model, K, R): the K = 4 runtime-R
+# instantiation without and with +I, K = 20 with one matrix, the
+# four-component mixture and the K = 20 cluster (two CTAs a pair)
+PER_PAIR_CASES = {"dna": (RATE_CASES["dna"].format(R=16), 4, 16),
+                  "pinv": (RATE_CASES["pinv"].format(R=16), 4, 16),
+                  "lg": (AA_CASES["lg"], 20, 4),
+                  "mixture": (AA_CASES["mixture"], 20, 4),
+                  "lg16": ("LG+G16{0.8}", 20, 16)}
+
+
+def _per_pair_state(dev, case, n_pairs, seed):
+    """(engine, tQ, pair edges, pair queries, invq) for a PER_PAIR_CASES
+    case (the mixture registered by the caller)."""
+    model, K, _ = PER_PAIR_CASES[case]
+    eng, tQ, pe, pq, _, _, invq = _state(
+        dev, n_pairs, seed=seed, model=model, n_taxa=16, data_seed=21,
+        with_invq=True, alphabet="ACGT" if K == 4 else AA)
+    return eng, tQ, pe, pq, invq
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("case", ["dna", "pinv"])
+@pytest.mark.parametrize("case", sorted(PER_PAIR_CASES))
 @pytest.mark.parametrize("width", [200, 1000])
-def test_kernel_per_pair_width_off_32_on_card(case, width):
-    """The per-pair shape (K3, +I K4) at R = 16 with a window width that is
-    not a multiple of 32, as ``--memsave`` and the mesh's exact redo give
-    it (the slab width, or the alignment's sites): 200 (T in shared
-    memory) and 1000 (T in device memory, one slice per CTA), with spans
-    up to the width. The runtime-R loops write T up to the span rounded
-    up to 32 sites, which the layout holds; bit for bit with the plain
-    version and the counters, and the library's geometry is
-    kernel_geometry's."""
+def test_kernel_per_pair_width_off_32_on_card(case, width,
+                                              mixture_registered):
+    """The per-pair shape (K3, +I K4) with a window width that is not a
+    multiple of 32, as ``--memsave`` and the mesh's exact redo give it
+    (the slab width, or the alignment's sites): 200 (T in shared memory)
+    and 1000 (T in device memory, one slice per CTA), with spans up to the
+    width; at K = 4, R = 16 (the runtime-R loops write T up to the span
+    rounded up to 32 sites, which the layout holds), at K = 20 with one
+    matrix and a mixture, and on the K = 20 cluster at R = 16 (T holds
+    exactly the width there). Bit for bit with the plain version and the
+    counters, and the library's geometry is kernel_geometry's."""
     dev = _card()
     pinv = case == "pinv"
-    R = 16
-    eng, tQ, pe, pq, _, _, invq = _state(
-        dev, 192, seed=width, model=RATE_CASES[case].format(R=R),
-        n_taxa=16, data_seed=21, with_invq=True)
+    _, K, R = PER_PAIR_CASES[case]
+    mix = case == "mixture"
+    eng, tQ, pe, pq, invq = _per_pair_state(dev, case, 192, width)
     blo = eng.blo
     S = blo.tU.shape[2]
-    home = "shared" if width <= bk.max_shared_sites(4 * R, pinv) else "device"
+    home = ("shared" if width <= bk.max_shared_sites(K * R, pinv, K, mix)
+            else "device")
     assert home == ("shared" if width == 200 else "device")
-    lib = bk.blo_newton.team_geometry(4, R, width, has_pinv=pinv,
+    lib = bk.blo_newton.team_geometry(K, R, width, mix, pinv,
                                       device_t=home == "device")
-    g = bk.kernel_geometry(4, R, width, has_pinv=pinv, regs=lib["regs"])
+    g = bk.kernel_geometry(K, R, width, mix, pinv, regs=lib["regs"])
     assert g["t_shared"] == (home == "shared")
     _same_geometry(lib, g)
     # each pair's window: the store's sites repeated out to the width, its
@@ -725,8 +747,46 @@ def test_kernel_per_pair_width_off_32_on_card(case, width):
     torch.cuda.synchronize()
     after = bk.blo_newton.counts()
     assert after["per_pair_launches"] == before["per_pair_launches"] + 1
+    assert (after["cluster_launches"] - before["cluster_launches"]
+            == (case == "lg16"))
     _assert_bitwise(got, bk.blo_newton_plain(tables, *args, width,
                                              counters=True, **kw))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_pairs", [1, 47])
+@pytest.mark.parametrize("case", ["lg", "mixture", "lg16"])
+def test_per_pair_few_pairs_on_card(case, n_pairs, mixture_registered):
+    """The per-pair shape at K = 20 (one matrix, the mixture) and on the
+    cluster with fewer pairs than a wave, as ``--memsave``'s last slab and
+    its redo pass give them (1 and 47 pairs; a slab at RK = 320 and
+    width 256 holds 48): each pair's outputs and counters are the plain
+    version's, bit for bit, and those of the same pair in a launch of
+    256 (pre-gathered 128-site windows)."""
+    dev = _card()
+    eng, tQ, pe, pq, _ = _per_pair_state(dev, case, 256, 17)
+    blo = eng.blo
+    W = 128
+    cols = torch.arange(W, device=dev)
+    e, q = pe.long(), pq.long()
+    rng = np.random.default_rng(n_pairs)
+    sp = torch.as_tensor(rng.integers(1, W + 1, len(pe)), dtype=torch.int32,
+                         device=dev)
+    ids = torch.arange(len(pe), dtype=torch.int32, device=dev)
+    args = (blo.tU[e][:, :, cols].contiguous(),
+            blo.tV[e][:, :, cols].contiguous(),
+            tQ[q][:, :, cols].contiguous(), ids, ids, torch.zeros_like(ids),
+            sp, blo.lengths[e], torch.zeros(len(pe), device=dev))
+    tables = bk._kernel_scalars(eng.consts, torch.float32)
+    full = bk.blo_newton(tables, *args, W, counters=True, per_pair=True)
+    few = tuple(t[:n_pairs] for t in args[:3]) + tuple(
+        t[:n_pairs] for t in args[3:])
+    got = bk.blo_newton(tables, *few, W, counters=True, per_pair=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, full):
+        assert torch.equal(a, b[:n_pairs])
+    _assert_bitwise(got, bk.blo_newton_plain(tables, *few, W,
+                                             counters=True))
 
 
 ORDER_MODELS = {"g4": GTR, "g16": RATE_CASES["dna"].format(R=16),
@@ -921,7 +981,7 @@ def test_refused_cluster_launch_raises(monkeypatch):
     eng, tQ, pe, pq, pb, sp = _state(dev, 128, seed=7, model="LG+G16{0.8}",
                                      n_taxa=16, data_seed=21, alphabet=AA)
     blo = eng.blo
-    real = bk.blo_newton.build(False)
+    real = bk.blo_newton.build(False, "team")
 
     class Refusing:
         blo_newton_team_geometry = real.blo_newton_team_geometry
@@ -934,8 +994,8 @@ def test_refused_cluster_launch_raises(monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran on the card")
 
-    monkeypatch.setattr(bk.blo_newton, "build", lambda has_pinv=False:
-                        Refusing)
+    monkeypatch.setattr(bk.blo_newton, "build",
+                        lambda has_pinv=False, part="dna": Refusing)
     monkeypatch.setattr(bk, "blo_newton_plain", no_plain)
     before = bk.blo_newton.counts()
     with pytest.raises(RuntimeError, match="launch failed.*701"):
@@ -1138,6 +1198,44 @@ def test_memsave_half_budget_on_card():
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", ["LG+G4{0.8}", "LG+G16{0.8}"],
+                         ids=["lg", "lg16"])
+def test_memsave_budget_zero_on_card(model):
+    """``--memsave`` at budget 0 past DNA G4: every pair of the exact path
+    streamed to the per-pair shape at K = 20 (LG+G4) and on the cluster
+    (LG+G16), counted at the launch, never the blocked shape or the twin;
+    placements agree with the resident engine on the card (best logl
+    within 1e-5 relative, top edge up to ties) on >= 99% of queries, and
+    the built engine holds nothing on the device but its constants."""
+    from epa_ng_tpu_torch.core.memsave import OutOfCoreEngine
+    dev = _card()
+    tree, ref, qry, _ = evolved_dataset(n_taxa=32, sites=200, n_queries=96,
+                                        seed=21, model_str="LG+G4{0.8}",
+                                        alphabet=AA)
+    opts = lambda **kw: Options(compute_dtype="f32", **kw)
+    res = PlacementEngine(tree, ref, Model.from_string(model), opts(),
+                          device=dev)
+    want = res._place_chunk_exact(res.encode_msa(qry), 0)
+    del res
+    before = bk.blo_newton.counts()
+    eng = OutOfCoreEngine(tree, ref, Model.from_string(model),
+                          opts(memsave=True, memsave_budget_gb=0.0),
+                          device=dev)
+    got = eng._place_chunk_exact(eng.encode_msa(qry), 0)
+    after = bk.blo_newton.counts()
+    st = eng.memsave_stats()
+    assert st["memsave_cached_edges"] == 0 and st["memsave_cached_mb"] == 0
+    assert st["memsave_hit_pairs"] == 0 and st["memsave_streamed_pairs"] > 0
+    per_pair, blocked, cluster = (after[k] - before[k] for k in (
+        "per_pair_launches", "blocked_launches", "cluster_launches"))
+    assert per_pair > 0 and blocked == 0
+    assert cluster == (per_pair if "G16" in model else 0)
+    assert eng.newton_work.totals()["twin_launches"] == 0
+    close, agree = _agreement(want, got)
+    assert close >= 0.99 and agree >= 0.99
+
+
+@pytest.mark.requires_cuda
 def test_mesh_on_one_card():
     """Two ep shards on the one card (``make_mesh(1, 2, [cuda:0] * 2)``):
     the engine is built on the CPU in f32, as the CLI builds it under
@@ -1149,14 +1247,34 @@ def test_mesh_on_one_card():
     edge is shared (the two builds round apart), and the exact redo's
     pairs within it too."""
     from chip_smoke import MEMSAVE_LOGL_ABS
+    _mesh_on_one_card(GTR, "ACGT", MEMSAVE_LOGL_ABS)
+
+
+@pytest.mark.requires_cuda
+def test_mesh_on_one_card_protein():
+    """test_mesh_on_one_card under LG+G4 on protein reads: the K = 20
+    blocked shape on both shards, its per-pair shape in the exact redo,
+    held to four f32 spacings at the resident run's largest |best logl|
+    (chip_smoke.f32_steps)."""
+    _mesh_on_one_card("LG+G4{0.8}", AA, None)
+
+
+def _mesh_on_one_card(model, alphabet, tol):
+    """test_mesh_on_one_card's body under ``model`` on reads evolved over
+    ``alphabet``; ``tol`` None: four f32 spacings at the resident run's
+    largest |best logl|."""
     from epa_ng_tpu_torch.parallel.mesh import make_mesh
     dev = _card()
     tree, ref, qry, _ = evolved_dataset(n_taxa=64, sites=200, n_queries=256,
-                                        seed=21, model_str=GTR)
-    make = lambda d: PlacementEngine(tree, ref, Model.from_string(GTR),
+                                        seed=21, model_str=model,
+                                        alphabet=alphabet)
+    make = lambda d: PlacementEngine(tree, ref, Model.from_string(model),
                                      Options(compute_dtype="f32"), device=d)
     res = make(dev)
     want = res.place_chunk(qry)
+    if tol is None:
+        tol = 4 * float(np.spacing(np.float32(max(
+            abs(p.logls[0]) for p in want))))
     eng = make("cpu")
     eng.attach_mesh(make_mesh(1, 2, [dev] * 2))
     assert eng.device == dev and eng._sharded.pad == 1
@@ -1170,7 +1288,7 @@ def test_mesh_on_one_card():
     shared = [abs(y.logls[0] - x.logls[0]) for x, y in zip(want, got)
               if x.edge_nums[0] == y.edge_nums[0]]
     assert len(shared) >= 0.9 * len(want)
-    assert max(shared) <= MEMSAVE_LOGL_ABS
+    assert max(shared) <= tol
 
     ec = eng.encode_msa(qry)
     perm = np.argsort(ec.ranges[:, 0], kind="stable")
@@ -1186,4 +1304,77 @@ def test_mesh_on_one_card():
         assert common
         lx = dict(zip(x.edge_nums.tolist(), x.logls.tolist()))
         ly = dict(zip(y.edge_nums.tolist(), y.logls.tolist()))
-        assert max(abs(lx[e] - ly[e]) for e in common) <= MEMSAVE_LOGL_ABS
+        assert max(abs(lx[e] - ly[e]) for e in common) <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cell", ["gtr_g4", "lg_g4", "mixture"])
+@pytest.mark.parametrize("heuristic", ["fixed", "baseball"])
+def test_exact_budgets_wide_on_card(tmp_path, monkeypatch, cell,
+                                    heuristic):
+    """``-G 0.1`` and ``--baseball-heur`` past GTR+G16: GTR+G4, LG+G4 and
+    the four-component mixture on small references (chip_smoke's
+    EXACT_CELLS, seed 5) place through their own instantiation alone,
+    never the twin, and agree with the port's f64 CPU run (top edge up to
+    ties on >= 99% of reads, best logl within 1e-5 relative): phase 5's
+    ``exact_budgets_wide``."""
+    import chip_smoke as cs
+    _card()
+    monkeypatch.setattr(cs, "OUT", str(tmp_path))
+    cs.register_mixture()
+    res = cs.exact_budgets("cuda", {heuristic: cs.EXACT_BUDGETS[heuristic]},
+                           **cs.EXACT_CELLS[cell])[heuristic]
+    assert res["launches"] > 0 and res["twin_launches"] == 0
+    assert res["agreement"]["top_edge_up_to_ties"] >= 0.99
+
+
+@pytest.fixture()
+def small_run(tmp_path, monkeypatch):
+    """chip_smoke writing under ``tmp_path``, and its small reference
+    (GTR+G4, 32 taxa x 200 sites, 96 reads, seed 5) run on the card and
+    in f64 on the CPU."""
+    import chip_smoke as cs
+    _card()
+    monkeypatch.setattr(cs, "OUT", str(tmp_path))
+    cs.small_reference("cuda", size=(32, 200, 96, 16))
+    return cs
+
+
+@pytest.mark.requires_cuda
+def test_lookup_bf16_on_card(small_run):
+    """``--lookup-dtype bf16`` (the residual preplacement GEMM in bf16) on
+    the card ranks as the f32 table does: the top edge up to ties on >=
+    99% of the reads (chip_smoke.lookup_bf16, phase 5b)."""
+    cs = small_run
+    cs.main_path(cs.small_paths(), 96, None, "cuda", name="base", chunk=256)
+    res = cs.lookup_bf16("cuda", "base", cs.small_paths(), 96, None,
+                         cs.MODEL, "k4_launches", 256)
+    assert res["agreement"]["top_edge_up_to_ties"] >= 0.99
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("key", ["f64", "pallas_off"])
+def test_twin_flags_on_card(small_run, key):
+    """``--compute-dtype f64`` and ``--pallas off`` (f32) run the torch
+    twin on the card, no kernel, and agree with the f64 CPU run: f64
+    within 1e-8 absolute, f32 within 1e-5 relative
+    (chip_smoke.twin_on_card, phase 5b)."""
+    res = small_run.twin_on_card("cuda", key)
+    assert res["twin_launches"] > 0
+
+
+@pytest.mark.requires_cuda
+def test_no_pre_mask_on_card(small_run):
+    """``--no-pre-mask`` places through the kernel on the card and agrees
+    with the f64 CPU run (chip_smoke.no_pre_mask, phase 5b)."""
+    res = small_run.no_pre_mask("cuda")
+    assert res["launches"]["launches"] > 0
+
+
+@pytest.mark.requires_cuda
+def test_bfast_places_on_card(small_run):
+    """A ``-c`` bfast file placed on the card gives the FASTA file's jplace
+    but for the invocation line (chip_smoke.bfast_round_trip, phase
+    5b)."""
+    res = small_run.bfast_round_trip("cuda", small_run.small_paths())
+    assert res["identical"] and res["placements"] > 0

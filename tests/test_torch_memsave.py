@@ -216,3 +216,73 @@ def test_memsave_options_are_the_jax_ones():
     for name in ("EDGE_BLOCK", "PRE_PIPELINE_DEPTH", "SLAB_PIPELINE_DEPTH",
                  "AUTO_BUDGET_FRACTION", "AUTO_BUDGET_FALLBACK"):
         assert getattr(memsave, name) == getattr(jmemsave, name), name
+
+
+# protein models past the DNA cell: K = 20 with one matrix, a four-component
+# LG-derived matrix mixture, and 16 rate categories (on the card: the K = 20
+# per-pair shape, the mixture's and the cluster's)
+AA_MODELS = {"lg": "LG+G4{0.8}", "mixture": "TESTMSMIX+G4{0.9}",
+             "lg_g16": "LG+G16{0.8}"}
+
+
+@pytest.fixture(scope="module")
+def aa_data():
+    """24 random protein taxa x 96 sites and 12 reads in both packages'
+    types, the four-component mixture registered in both packages' tables,
+    the JAX engine's budget-0 placements per model, made on first use,
+    and the port's host store bytes per model, kept by the first run."""
+    from epa_ng_tpu.models import aa_matrices as jaa
+    from epa_ng_tpu.utils.synth import AA
+    from epa_ng_tpu_torch.models import aa_matrices as taa
+    from test_torch_blo_kernel_aa import mixture_components
+    comps = mixture_components(4)
+    for reg in (jaa, taa):
+        reg.MIXTURES["TESTMSMIX"] = (comps, "gamma")
+    tree, ref, qry = synth_dataset(n_taxa=24, sites=96, n_queries=12,
+                                   seed=21, alphabet=AA)
+    port = (Tree.from_string(tree.plain_newick()), _port_msa(ref),
+            _port_msa(qry))
+    want, host_bytes = {}, {}
+
+    def jax_placements(model):
+        if model not in want:
+            jeng = JOutOfCoreEngine(tree, ref, JModel.from_string(model),
+                                    JOptions(blo_block=64, memsave=True,
+                                             memsave_budget_gb=0.0))
+            want[model] = jeng.place_chunk(qry)
+        return want[model]
+
+    yield port, jax_placements, host_bytes
+    for reg in (jaa, taa):
+        reg.MIXTURES.pop("TESTMSMIX", None)
+
+
+@pytest.mark.parametrize("tier", ["stream", "partial"])
+@pytest.mark.parametrize("case", sorted(AA_MODELS))
+def test_memsave_aa_tiers_match_jax(monkeypatch, aa_data, case, tier):
+    """Protein under --memsave, f64: pure streaming and the cached prefix
+    beside streamed misses (half the host store, in blocks of 16 edges)
+    give the JAX engine's budget-0 placements, for one matrix (LG+G4), a
+    matrix mixture and 16 rate categories."""
+    port, jax_placements, host_bytes = aa_data
+    model = AA_MODELS[case]
+    engine = lambda gb: OutOfCoreEngine(
+        port[0], port[1], Model.from_string(model),
+        Options(blo_block=64, memsave=True, memsave_budget_gb=gb),
+        device="cpu")
+    if tier == "stream" or model not in host_bytes:
+        eng = engine(0.0)
+        host_bytes[model] = eng.host_resident_bytes()
+    if tier == "partial":
+        monkeypatch.setattr(memsave, "EDGE_BLOCK", 16)
+        eng = engine(host_bytes[model] / 2 / 1e9)
+    got = eng.place_chunk(port[2])
+    assert_same_pqueries(jax_placements(model), got)
+    st = eng.memsave_stats()
+    assert st["memsave_streamed_pairs"] > 0
+    if tier == "stream":
+        assert st["memsave_cached_edges"] == 0 and st["memsave_hit_pairs"] == 0
+    else:
+        assert 0 < st["memsave_cached_edges"] < eng.num_edges
+        assert st["memsave_hit_pairs"] > 0
+    assert eng.newton_work.totals()["twin_launches"] > 0

@@ -45,15 +45,19 @@ CPUS = ["cpu"] * 8
 LOGL_TOL, LEN_TOL = 1e-8, 1e-7
 
 
+def _port_engine(tree, ref, model, **opts):
+    """The port's engine on the JAX package's data, f64 on the CPU."""
+    return PlacementEngine(Tree.from_string(tree.plain_newick()),
+                           _port_msa(ref), Model.from_string(model),
+                           Options(compute_dtype="f64", **opts),
+                           device="cpu")
+
+
 def _engines(tree, ref, model, **opts):
     """The JAX engine and the port's on the same data and options, f64."""
     jeng = JEngine(tree, ref, JModel.from_string(model),
                    JOptions(compute_dtype="f64", **opts))
-    teng = PlacementEngine(Tree.from_string(tree.plain_newick()),
-                           _port_msa(ref), Model.from_string(model),
-                           Options(compute_dtype="f64", **opts),
-                           device="cpu")
-    return jeng, teng
+    return jeng, _port_engine(tree, ref, model, **opts)
 
 
 def _batch(jeng, teng, qry):
@@ -129,7 +133,7 @@ def test_sharded_preplace_matches_jax():
     tree, ref, qry = synth_dataset(n_taxa=32, sites=128, n_queries=15,
                                    seed=9)
     jeng, teng = _engines(tree, ref, GTR)
-    _, plain = _engines(tree, ref, GTR)
+    plain = _port_engine(tree, ref, GTR)
     jeng.attach_mesh(jmesh.make_mesh(2, 4))
     teng.attach_mesh(mesh.make_mesh(2, 4, CPUS))
     ec = jeng.encode_msa(qry)
@@ -141,17 +145,19 @@ def test_sharded_preplace_matches_jax():
                                rtol=1e-12, atol=1e-9)
 
 
-def _flat_read_data():
+def _flat_read_data(n_taxa=32, sites=128, n_queries=30, alphabet="ACGT"):
     """JAX test_sharding's data: 30 evolved reads and 4 barely informative
-    ones (flat posteriors, so the redo paths have work)."""
-    tree, ref, qry = synth_dataset(n_taxa=32, sites=128, n_queries=30,
-                                   seed=21)
+    ones (flat posteriors, so the redo paths have work); over another
+    ``alphabet`` (protein) at another size, random reads in their place."""
+    tree, ref, qry = synth_dataset(n_taxa=n_taxa, sites=sites,
+                                   n_queries=n_queries, seed=21,
+                                   alphabet=alphabet)
     rng = np.random.default_rng(5)
     for i in range(4):
-        start = int(rng.integers(0, 120))
-        s = ["-"] * 128
+        start = int(rng.integers(0, sites - 8))
+        s = ["-"] * sites
         for j in range(start, start + 8):
-            s[j] = "ACGT"[rng.integers(0, 4)]
+            s[j] = alphabet[rng.integers(0, len(alphabet))]
         qry.sequences.append(Sequence([f"F{i}"], "".join(s)))
     return tree, ref, JMSA(sequences=qry.sequences, num_sites=qry.num_sites)
 
@@ -167,19 +173,48 @@ def assert_same_pqueries(want, got, tol=LOGL_TOL):
                                        rtol=0, atol=t, err_msg=f)
 
 
-@pytest.mark.parametrize("model", [GTR, PINV], ids=["gtr", "pinv"])
-def test_attach_mesh_matches_plain_and_jax(model):
+@pytest.fixture()
+def mesh_mixture():
+    """A four-component LG-derived matrix mixture in both packages'
+    tables."""
+    from epa_ng_tpu.models import aa_matrices as jaa
+    from epa_ng_tpu_torch.models import aa_matrices as taa
+    from test_torch_blo_kernel_aa import mixture_components
+    comps = mixture_components(4)
+    for reg in (jaa, taa):
+        reg.MIXTURES["TESTMESHMIX"] = (comps, "gamma")
+    yield
+    for reg in (jaa, taa):
+        reg.MIXTURES.pop("TESTMESHMIX", None)
+
+
+LG = "LG+G4{0.8}"
+MIX = "TESTMESHMIX+G4{0.9}"
+
+
+@pytest.mark.parametrize("model", [GTR, PINV, LG, MIX],
+                         ids=["gtr", "pinv", "lg", "mixture"])
+def test_attach_mesh_matches_plain_and_jax(model, mesh_mixture):
     """An engine with a 4x2 mesh attached places like the plain engine,
     and its fused dispatch (the sharded step with the on-device filter),
     wide redo and exact redo (preplace on the shards, then the
-    host-window Newton) match JAX's attached engine; under +I too."""
-    tree, ref, qry = _flat_read_data()
+    host-window Newton) match JAX's attached engine; under +I too, and
+    for protein (24 random taxa x 96 sites, 12 reads and 4 barely
+    informative ones) under LG+G4 and a matrix mixture (on the card: the
+    K = 20 and the mixture's blocked shape on the shards, their per-pair
+    shape in the exact redo)."""
+    protein = model in (LG, MIX)
+    if protein:
+        from epa_ng_tpu.utils.synth import AA
+        tree, ref, qry = _flat_read_data(24, 96, 12, AA)
+    else:
+        tree, ref, qry = _flat_read_data()
     if model == PINV:
         ref, qry, _ = with_invariant_sites(ref, qry, (0.26, 0.24, 0.25,
                                                       0.25), 0.2, 3)
     opts = dict(blo_block=64, fused_topk=8)
     jeng, teng = _engines(tree, ref, model, **opts)
-    _, plain = _engines(tree, ref, model, **opts)
+    plain = _port_engine(tree, ref, model, **opts)
     jeng.attach_mesh(jmesh.make_mesh(4, 2))
     teng.attach_mesh(mesh.make_mesh(4, 2, CPUS))
     assert teng._sharded.pad == 1 and teng._blo is None
@@ -205,7 +240,7 @@ def test_attach_mesh_matches_plain_and_jax(model):
     tq = teng._query_tensors_codes(codes)
     pq = plain._query_tensors_codes(codes)
     for fn in ("_redo_wide", "_redo_exact"):
-        args = ([0, 1, 33], codes, ranges)
+        args = ([0, 1, 13 if protein else 33], codes, ranges)
         rest = (perm, ec.headers, 0)
         got = getattr(teng, fn)(*args, *tq, *rest)
         assert_same_pqueries(getattr(jeng, fn)(*args, *jq, *rest), got)
@@ -221,8 +256,8 @@ def test_attach_mesh_escalation_matches_plain():
     (same ladder on one device) and, up to ties, the exact path's."""
     tree, ref, qry = synth_dataset(n_taxa=64, sites=128, n_queries=24,
                                    seed=33)
-    _, meshed = _engines(tree, ref, GTR, blo_block=64, fused_topk=2)
-    _, plain = _engines(tree, ref, GTR, blo_block=64, fused_topk=2)
+    meshed = _port_engine(tree, ref, GTR, blo_block=64, fused_topk=2)
+    plain = _port_engine(tree, ref, GTR, blo_block=64, fused_topk=2)
     meshed.attach_mesh(mesh.make_mesh(4, 2, CPUS))
     tqry = _port_msa(qry)
     got = meshed.place_chunk(tqry)
@@ -239,7 +274,7 @@ def test_attach_mesh_escalation_matches_plain():
 
 def test_attach_mesh_refusals():
     tree, ref, _ = synth_dataset(n_taxa=8, sites=48, n_queries=2, seed=1)
-    _, teng = _engines(tree, ref, GTR)
+    teng = _port_engine(tree, ref, GTR)
     with pytest.raises(ValueError, match="power of two"):
         teng.attach_mesh(mesh.make_mesh(3, 1, CPUS))
     with pytest.raises(ValueError, match="needs 16 devices, have 8"):
