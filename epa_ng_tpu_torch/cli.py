@@ -32,6 +32,9 @@ log = logging.getLogger("epa_ng_tpu_torch")
 # seconds; the logged "Time spent placing" mirrors the reference's
 # integer-seconds format, src/main.cpp:545). Read by chip_smoke.py.
 LAST_RUN_STATS: dict = {}
+# the pipeline's stages in the end-of-run stage line (utils/timer.py)
+STAGES = ("read", "read.scan", "dispatch", "write", "finalize",
+          "finalize.sync", "emit")
 
 BANNER = r"""
     ______ ____   ___  ______ ____   __  __      ______ ____   __  __
@@ -585,6 +588,7 @@ def _place(args, options, invocation, start_all) -> int:
     from epa_ng_tpu_torch.io.jplace import JplaceWriter
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.parallel import dist
+    from epa_ng_tpu_torch.utils import timer
 
     # --adaptive-split: rate-proportional query shards (the runtime
     # consumer of the scheduling math, parallel.schedule). Each process
@@ -668,31 +672,27 @@ def _place(args, options, invocation, start_all) -> int:
         progress["done"] += len(ec)
         return handle, ec.num_reads
 
-    stage_s = {"finalize": 0.0, "emit": 0.0}
-
     def write(item):
         handle, nreads = item
-        t0 = time.perf_counter()
-        result = engine.finalize_chunk(handle)
-        t1 = time.perf_counter()
-        writer.write(result)
-        stage_s["emit"] += time.perf_counter() - t1
-        stage_s["finalize"] += t1 - t0
+        writer.write(engine.finalize_chunk(handle))
         progress["reads"] += nreads
         log.info("%d Sequences done!", progress["reads"])
 
-    pipeline = StreamingPipeline(read_chunk, compute, write)
-    pipeline.run()
+    spans_before = timer.RECORDER.totals()
+    StreamingPipeline(read_chunk, compute, write).run()
     writer.close()
+    stages = timer.since(spans_before, timer.RECORDER.totals())
+    wall = lambda k: stages.get(k, (0, 0.0, 0.0))[1]
     memory = {}
     if on_card:
         torch.cuda.synchronize(device)
         memory = dict(device_mb_at_place=mem_at_place / 1e6,
                       device_peak_mb=(torch.cuda.max_memory_allocated(device)
                                       / 1e6))
-    log.debug("Stage times: read %.2fs compute %.2fs write %.2fs",
-              pipeline.read_timer.sum(), pipeline.compute_timer.sum(),
-              pipeline.write_timer.sum())
+    log.info("Stage times, wall / CPU: %s; waiting for a chunk %.2fs, for "
+             "the writer %.2fs", ", ".join(
+                 "%s %.2fs / %.2fs" % (k, *stages.get(k, (0, 0.0, 0.0))[1:])
+                 for k in STAGES), wall("wait_chunk"), wall("wait_writer"))
 
     if pcount > 1:
         dist.barrier()
@@ -711,13 +711,16 @@ def _place(args, options, invocation, start_all) -> int:
         total_s=time.time() - start_all,
         reads=progress["reads"],
         sequences=progress["done"],
-        read_s=pipeline.read_timer.sum(),
-        compute_s=pipeline.compute_timer.sum(),
-        write_s=pipeline.write_timer.sum(),
-        # write_s split: device sync + result assembly (finalize) vs
-        # jplace text formatting + file write (emit)
-        finalize_s=stage_s["finalize"],
-        emit_s=stage_s["emit"],
+        # the stages' wall seconds from the span recorder (utils/timer.py):
+        # write_s splits into device sync + result assembly (finalize) and
+        # jplace text formatting + file write (emit, with the closing)
+        read_s=wall("read"),
+        compute_s=wall("dispatch"),
+        write_s=wall("write"),
+        finalize_s=wall("finalize"),
+        emit_s=wall("emit"),
+        # every span name's (count, wall s, CPU s) over the run
+        stages=stages,
         # the CUDA kernel's executed Newton work, from its counters, and
         # the calls of the torch twin (twin_launches)
         **engine.newton_work.totals(),

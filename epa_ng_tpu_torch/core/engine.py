@@ -24,6 +24,7 @@ torch twin, as the JAX package runs them on its XLA twin
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from typing import Optional
@@ -44,6 +45,7 @@ from epa_ng_tpu_torch.ops import clv as clv_ops
 from epa_ng_tpu_torch.ops import eigen, likelihood, lookup, newton
 from epa_ng_tpu_torch.tree.tree import Tree
 from epa_ng_tpu_torch.utils.options import Options
+from epa_ng_tpu_torch.utils.timer import span
 
 log = logging.getLogger("epa_ng_tpu_torch")
 
@@ -530,6 +532,10 @@ class PlacementEngine:
 
     def finalize_chunk(self, handle) -> list:
         """Sync + assemble a pending chunk from place_chunk_async."""
+        with span("finalize"):
+            return self._finalize_chunk(handle)
+
+    def _finalize_chunk(self, handle) -> list:
         kind, state = handle
         if kind == "fused":
             result = self._finalize_chunk_fused(state)
@@ -678,7 +684,7 @@ class PlacementEngine:
         codes, ranges = state["codes"], state["ranges"]
         tQ, invq = state["tQ"], state["invq"]
         seq_id_offset = state["seq_id_offset"]
-        out = state["out"].numpy()  # waits for this chunk's host copy
+        out = state["out"].numpy(timed=True)  # this chunk's host copy
         edges = out[0].astype(np.int64)
         logl, lwr, pendant, distal = out[1], out[2], out[3], out[4]
         keep = out[5] > 0.5
@@ -1016,9 +1022,12 @@ class _HostCopy:
         else:
             self._buf = t
 
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+    def numpy(self, timed: bool = False) -> np.ndarray:
+        """The landed bytes; ``timed``: the wait is a chunk's result (once
+        a chunk), recorded as its ``finalize.sync`` span."""
+        with span("finalize.sync") if timed else contextlib.nullcontext():
+            if self._event is not None:
+                self._event.synchronize()
         return self._buf.numpy()
 
 

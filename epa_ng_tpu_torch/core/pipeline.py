@@ -9,17 +9,23 @@ reference's main path):
     reader thread -> [chunk queue] -> compute (device) -> [result queue]
     -> writer thread
 
-Each stage records per-chunk timings (utils.Timer) so multi-host jobs can
-rebalance with parallel.schedule.
+Each stage records a span a chunk in the process' recorder
+(``utils/timer.py``): ``read`` on the reader thread, ``wait_chunk`` (the
+dispatching thread waiting for a read chunk), ``dispatch`` and
+``wait_writer`` (waiting for room in the result queue) on the thread that
+calls :meth:`StreamingPipeline.run`, and ``write`` on the writer thread;
+the spans that ``read``, ``dispatch`` and ``write`` call open nest in
+them and share their chunk index.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Callable, Optional
 
-from epa_ng_tpu_torch.utils.timer import Timer
+from epa_ng_tpu_torch.utils.timer import span
 
 _END = object()
 
@@ -38,17 +44,13 @@ class StreamingPipeline:
         self._write = write
         self._in_q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._out_q: queue.Queue = queue.Queue(maxsize=prefetch)
-        self.read_timer = Timer()
-        self.compute_timer = Timer()
-        self.write_timer = Timer()
         self._error: Optional[BaseException] = None
 
     def _reader(self):
         try:
-            while True:
-                self.read_timer.start()
-                chunk = self._read()
-                self.read_timer.stop()
+            for n in itertools.count():
+                with span("read", n):
+                    chunk = self._read()
                 if chunk is None:
                     break
                 self._in_q.put(chunk)
@@ -63,9 +65,9 @@ class StreamingPipeline:
                 item = self._out_q.get()
                 if item is _END:
                     break
-                self.write_timer.start()
-                self._write(item)
-                self.write_timer.stop()
+                n, result = item
+                with span("write", n):
+                    self._write(result)
         except BaseException as e:
             self._error = e
             # drain so the producer never blocks
@@ -74,20 +76,23 @@ class StreamingPipeline:
 
     def run(self) -> int:
         """Run to completion; returns the number of chunks processed."""
-        rt = threading.Thread(target=self._reader, daemon=True)
-        wt = threading.Thread(target=self._writer, daemon=True)
+        rt = threading.Thread(target=self._reader, daemon=True,
+                              name="pipeline-reader")
+        wt = threading.Thread(target=self._writer, daemon=True,
+                              name="pipeline-writer")
         rt.start()
         wt.start()
         n = 0
         try:
             while True:
-                chunk = self._in_q.get()
+                with span("wait_chunk", n):
+                    chunk = self._in_q.get()
                 if chunk is _END:
                     break
-                self.compute_timer.start()
-                result = self._compute(chunk, n)
-                self.compute_timer.stop()
-                self._out_q.put(result)
+                with span("dispatch", n):
+                    result = self._compute(chunk, n)
+                with span("wait_writer", n):
+                    self._out_q.put((n, result))
                 n += 1
                 if self._error:
                     break

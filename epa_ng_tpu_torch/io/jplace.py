@@ -23,6 +23,7 @@ from typing import Optional, Union
 
 from epa_ng_tpu_torch.core.lwr import ChunkPlacements, PQuery
 from epa_ng_tpu_torch.tree.tree import RtreeMapper
+from epa_ng_tpu_torch.utils.timer import span
 
 
 def esc(s: str) -> str:
@@ -81,9 +82,10 @@ class JplaceWriter:
                 f"{self._fmt(distal)}, {self._fmt(pendant)}]")
 
     def write(self, placements: Union[ChunkPlacements, list]):
-        if isinstance(placements, ChunkPlacements):
-            return self.write_batch(placements)
-        return self.write_pqueries(placements)
+        with span("emit"):
+            if isinstance(placements, ChunkPlacements):
+                return self.write_batch(placements)
+            return self.write_pqueries(placements)
 
     def _begin_chunk(self, out: list):
         if self._first:
@@ -162,17 +164,18 @@ class JplaceWriter:
     def close(self):
         if self._f is None:
             return
-        if self._fragment:
-            with open(self.path + ".count", "w") as cf:
-                cf.write(str(self.n_queries))
-        else:
-            if self._first:
-                # no placements at all: still emit a valid document
-                self._f.write("{\n")
-                self._f.write(f'  "tree": "{esc(self._tree)}",\n')
-                self._f.write('  "placements": \n  [\n')
-            self._f.write(_trailer(self._invocation))
-        self._f.close()
+        with span("emit"):
+            if self._fragment:
+                with open(self.path + ".count", "w") as cf:
+                    cf.write(str(self.n_queries))
+            else:
+                if self._first:
+                    # no placements at all: still emit a valid document
+                    self._f.write("{\n")
+                    self._f.write(f'  "tree": "{esc(self._tree)}",\n')
+                    self._f.write('  "placements": \n  [\n')
+                self._f.write(_trailer(self._invocation))
+            self._f.close()
         self._f = None
 
     def __enter__(self):

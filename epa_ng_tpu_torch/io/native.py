@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from epa_ng_tpu_torch.utils.timer import span
+
 log = logging.getLogger("epa_ng_tpu_torch")
 
 _lock = threading.Lock()
@@ -157,10 +159,13 @@ class NativeChunkReader:
         labels_buf = ctypes.create_string_buffer(labels_cap)
         mask_ptr = (self._mask.ctypes.data_as(ctypes.c_void_p)
                     if self._mask is not None else None)
-        n = self._lib.fs_read_chunk(
-            self._h, max_seqs, self._in_sites, self._out_sites,
-            self._code_map.ctypes.data_as(ctypes.c_void_p), mask_ptr,
-            codes.ctypes.data_as(ctypes.c_void_p), labels_buf, labels_cap)
+        # the scan itself (ctypes releases the interpreter lock)
+        with span("read.scan"):
+            n = self._lib.fs_read_chunk(
+                self._h, max_seqs, self._in_sites, self._out_sites,
+                self._code_map.ctypes.data_as(ctypes.c_void_p), mask_ptr,
+                codes.ctypes.data_as(ctypes.c_void_p), labels_buf,
+                labels_cap)
         if n == -4:
             raise ValueError("invalid character in sequence")
         if n == -2:

@@ -14,9 +14,9 @@ test_adaptive_split_two_ranks). The stage-pipeline solver half
 (``solve``/``assign``/``reassign``) mirrors the reference's scheduler,
 which its own v0.3.8 ``simple_mpi`` path never calls either
 (src/pipeline/Pipeline.hpp:35, src/pipeline/schedule.cpp:16-54): kept as
-unit-tested math for a cross-host stage pipeline, with
-``core.pipeline.StreamingPipeline`` recording the stage timers that
-would feed it.
+unit-tested math for a cross-host stage pipeline. Nothing feeds it: the
+stage times that ``core.pipeline.StreamingPipeline`` records
+(``utils/timer.py``) go to the CLI's stage line.
 """
 
 from __future__ import annotations
