@@ -35,6 +35,9 @@ LAST_RUN_STATS: dict = {}
 # the pipeline's stages in the end-of-run stage line (utils/timer.py)
 STAGES = ("read", "read.scan", "dispatch", "write", "finalize",
           "finalize.sync", "emit")
+# and its running counts: the native reader's records by path, and the
+# chunks that the duplicate pre-screen sent to the exact comparison
+COUNTS = ("read.rows_gather", "read.rows_byteloop", "collapse.exact")
 
 BANNER = r"""
     ______ ____   ___  ______ ____   __  __      ______ ____   __  __
@@ -679,9 +682,11 @@ def _place(args, options, invocation, start_all) -> int:
         log.info("%d Sequences done!", progress["reads"])
 
     spans_before = timer.RECORDER.totals()
+    counts_before = timer.RECORDER.counts()
     StreamingPipeline(read_chunk, compute, write).run()
     writer.close()
     stages = timer.since(spans_before, timer.RECORDER.totals())
+    counts = timer.counts_since(counts_before, timer.RECORDER.counts())
     wall = lambda k: stages.get(k, (0, 0.0, 0.0))[1]
     memory = {}
     if on_card:
@@ -690,9 +695,10 @@ def _place(args, options, invocation, start_all) -> int:
                       device_peak_mb=(torch.cuda.max_memory_allocated(device)
                                       / 1e6))
     log.info("Stage times, wall / CPU: %s; waiting for a chunk %.2fs, for "
-             "the writer %.2fs", ", ".join(
+             "the writer %.2fs; counts: %s", ", ".join(
                  "%s %.2fs / %.2fs" % (k, *stages.get(k, (0, 0.0, 0.0))[1:])
-                 for k in STAGES), wall("wait_chunk"), wall("wait_writer"))
+                 for k in STAGES), wall("wait_chunk"), wall("wait_writer"),
+             ", ".join("%s %d" % (k, counts.get(k, 0)) for k in COUNTS))
 
     if pcount > 1:
         dist.barrier()
@@ -721,6 +727,8 @@ def _place(args, options, invocation, start_all) -> int:
         emit_s=wall("emit"),
         # every span name's (count, wall s, CPU s) over the run
         stages=stages,
+        # every running count's increase over the run
+        counts=counts,
         # the CUDA kernel's executed Newton work, from its counters, and
         # the calls of the torch twin (twin_launches)
         **engine.newton_work.totals(),

@@ -15,18 +15,20 @@ vectorized table lookup:
             maps onto a lookup column with the identical state bitmask)
 - collapse: np.unique over the code rows      (duplicate reads share work)
 
-The native fastseq scanner emits (codes, ranges) directly from mmap'd
-FASTA; the Python fallback builds the byte matrix from strings first.
+The native fastseq scanner emits (codes, ranges, row hashes) directly from
+mmap'd FASTA; the Python fallback builds the byte matrix from strings first.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
 from epa_ng_tpu_torch.models.charmaps import (INVALID_COL, lookup_chars,
                                         lookup_col_table, state_mask_table)
+from epa_ng_tpu_torch.utils.timer import RECORDER
 
 
 @dataclass
@@ -35,6 +37,8 @@ class EncodedChunk:
     headers: list  # list[list[str]]: all duplicate headers per row
     codes: np.ndarray   # [Q, S] uint8 lookup-column codes
     ranges: np.ndarray  # [Q, 2] int32 (begin, span) valid ranges
+    # [Q] uint64 code_hashes(codes) where the reader computed it
+    row_hash: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.headers)
@@ -91,15 +95,20 @@ def ranges_from_nongap(nongap: np.ndarray) -> np.ndarray:
     return out
 
 
+def invalid_char(byte: int, name: Optional[str] = None) -> ValueError:
+    """The error for an invalid character, naming the sequence if known."""
+    who = f" (sequence {name!r})" if name is not None else ""
+    return ValueError(f"invalid character {chr(byte)!r} in sequence{who}")
+
+
 def encode_rows(rows: np.ndarray, num_states: int,
                 headers=None) -> tuple[np.ndarray, np.ndarray]:
     """(codes, ranges) from a byte matrix; raises on invalid characters."""
     codes = lookup_col_table(num_states)[rows]
     if (codes == INVALID_COL).any():
         q, s = np.argwhere(codes == INVALID_COL)[0]
-        who = f" (sequence {headers[q][0]!r})" if headers else ""
-        raise ValueError(
-            f"invalid character {chr(rows[q, s])!r} in sequence{who}")
+        raise invalid_char(int(rows[q, s]),
+                           headers[q][0] if headers else None)
     return codes, ranges_from_rows(rows)
 
 
@@ -110,21 +119,23 @@ def from_msa(msa, num_states: int) -> EncodedChunk:
     return EncodedChunk(headers=headers, codes=codes, ranges=ranges)
 
 
-def _row_hashes(codes: np.ndarray, ranges: np.ndarray) -> np.ndarray:
-    """[Q] uint64 FNV-style hash over each (codes row, range) — a cheap
-    duplicate pre-screen: distinct hashes prove distinct rows."""
+_FNV_BASIS = np.uint64(0xCBF29CE484222325)
+_FNV_PRIME = np.uint64(0x100000001B3)
+
+
+def code_hashes(codes: np.ndarray) -> np.ndarray:
+    """[Q] uint64 FNV-style hash of each codes row, read as little-endian
+    8-byte words, the last one zero-padded (native/fastseq.cpp's row_hash
+    computes the same in the reader's pass)."""
     Q, S = codes.shape
     pad = (-S) % 8
     if pad:
         codes = np.pad(codes, [(0, 0), (0, pad)])
-    words = np.ascontiguousarray(codes).view(np.uint64)      # [Q, S/8]
-    h = np.full(Q, np.uint64(0xCBF29CE484222325))
-    prime = np.uint64(0x100000001B3)
+    words = np.ascontiguousarray(codes).view("<u8")          # [Q, S/8]
+    h = np.full(Q, _FNV_BASIS)
     with np.errstate(over="ignore"):
         for j in range(words.shape[1]):
-            h = (h * prime) ^ words[:, j]
-        for j in range(2):
-            h = (h * prime) ^ ranges[:, j].astype(np.uint64)
+            h = (h * _FNV_PRIME) ^ words[:, j]
     return h
 
 
@@ -134,16 +145,23 @@ def collapse(ec: EncodedChunk) -> EncodedChunk:
     Duplicate short reads are the norm in metagenomic data; collapsed rows
     are placed once and reported under every name.
 
-    A vectorized 64-bit row-hash pre-screen skips the exact (byte-wise
-    sort) comparison entirely when every row hashes distinctly — on
-    duplicate-free chunks the exact path cost ~4x the whole FASTA scan
-    (the common case pays ~nothing, the duplicate-heavy case pays where
-    collapsing also saves placement work)."""
+    A 64-bit hash of each codes row (``row_hash`` where the reader
+    computed it, else ``code_hashes``) pre-screens: distinct hashes prove
+    distinct codes, so distinct rows whatever the ranges (which
+    ``check_chunk`` may rewrite), and the exact (byte-wise sort)
+    comparison is skipped — on duplicate-free chunks it cost ~4x the whole
+    FASTA scan. The recorder counts the chunks that go on to it
+    (``collapse.exact``)."""
     Q = len(ec.headers)
     if Q <= 1:
         return ec
-    if len(np.unique(_row_hashes(ec.codes, ec.ranges))) == Q:
+    hashes = code_hashes(ec.codes) if ec.row_hash is None else ec.row_hash
+    # a set, not np.unique: numpy lets go of the interpreter lock for each
+    # of its loops over Q elements, and while the pipeline's other threads
+    # are busy, each time costs a wait to take it back
+    if len(set(hashes.tolist())) == Q:
         return ec
+    RECORDER.count("collapse.exact", 1)
     # key on (codes, ranges): '?' and '-' share the gap lookup column but
     # produce different valid ranges, which changes placement
     rows = np.hstack([

@@ -33,6 +33,33 @@ inline const char* find_nl(const char* p, const char* end) {
   return nl ? nl : end;
 }
 
+// True when any of n bytes is whitespace or a control byte (<= ' ').
+inline bool has_space(const uint8_t* s, int64_t n) {
+  uint8_t any = 0;
+  for (int64_t i = 0; i < n; ++i) any |= (s[i] <= ' ');
+  return any != 0;
+}
+
+// FNV-style 64-bit hash of a row of codes read as little-endian 8-byte
+// words, the last one zero-padded: core/chunk.py::code_hashes is the same
+// hash in numpy.
+inline uint64_t row_hash(const uint8_t* row, int64_t n) {
+  const uint64_t prime = 0x100000001B3ull;
+  uint64_t h = 0xCBF29CE484222325ull;
+  int64_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    uint64_t w;
+    memcpy(&w, row + i, 8);
+    h = (h * prime) ^ w;
+  }
+  if (i < n) {
+    uint64_t w = 0;
+    memcpy(&w, row + i, n - i);
+    h = (h * prime) ^ w;
+  }
+  return h;
+}
+
 }  // namespace
 
 extern "C" {
@@ -148,20 +175,42 @@ long fs_skip(void* handle, int64_t n) {
   return skipped;
 }
 
-// Read up to max_seqs records, encoding with code_map (256 entries; 0xFF =
-// invalid char -> abort with -4). If mask != null, columns with mask[i] != 0
-// are dropped (premasking); codes_out row width must be out_sites.
-// Labels are written NUL-terminated back-to-back into labels_out.
-// Returns number of sequences read, or a negative error.
-long fs_read_chunk(void* handle, int64_t max_seqs, int64_t in_sites,
-                   int64_t out_sites, const uint8_t* code_map,
-                   const uint8_t* mask, uint8_t* codes_out,
-                   char* labels_out, int64_t labels_cap) {
+// Read up to max_seqs records into a finished chunk, in one pass.
+//
+// code_map (256 entries) takes a byte to its code; 0xFF marks an invalid
+// byte. Columns with mask[i] != 0 are dropped (premasking); cols lists the
+// kept input columns in order (out_sites of them). For each record it
+// writes a row of out_sites codes into codes_out, the row's valid range
+// (begin, span) over its kept columns into ranges_out, trimming the
+// literal '-' alone (the rule of core/chunk.py::ranges_from_rows, on the
+// byte, not the code: '?' and '-' share a code but not a range), and the
+// FNV-style hash of the row's codes into hash_out (row_hash above). Labels
+// go NUL-terminated back-to-back into labels_out.
+//
+// A record that is one line of exactly in_sites bytes, none of them
+// whitespace or a control byte, takes a gather over cols; every other
+// record (multi-line, CRLF, blanks, spaces or tabs) takes the byte loop.
+// Both give the same bytes and the same errors on the same record.
+//
+// meta (5 entries) receives: [0] label bytes used, [1] records gathered,
+// [2] records through the byte loop, and after -4 the first invalid byte's
+// [3] record (within this call) and [4] value.
+// Returns the number of records read, or -2 width mismatch, -4 invalid
+// byte, -5 labels_out too small.
+long fs_read_encoded(void* handle, int64_t max_seqs, int64_t in_sites,
+                     int64_t out_sites, const uint8_t* code_map,
+                     const uint8_t* mask, const int32_t* cols,
+                     uint8_t* codes_out, int32_t* ranges_out,
+                     uint64_t* hash_out, char* labels_out,
+                     int64_t labels_cap, int64_t* meta) {
   auto* r = static_cast<Reader*>(handle);
   const char* p = r->data + r->pos;
   const char* end = r->data + r->size;
   int64_t nread = 0;
   int64_t label_off = 0;
+  int64_t n_gather = 0;
+  int64_t n_loop = 0;
+  long rc = 0;
 
   while (p < end && (*p == '\n' || *p == '\r')) p++;
   while (p < end && nread < max_seqs) {
@@ -171,34 +220,92 @@ long fs_read_chunk(void* handle, int64_t max_seqs, int64_t in_sites,
     const char* lend = nl;
     while (lend > lstart && (lend[-1] == '\r')) lend--;
     int64_t llen = lend - lstart;
-    if (label_off + llen + 1 > labels_cap) return -5;
+    if (label_off + llen + 1 > labels_cap) {
+      rc = -5;
+      break;
+    }
     memcpy(labels_out + label_off, lstart, llen);
     labels_out[label_off + llen] = '\0';
     label_off += llen + 1;
 
     p = nl < end ? nl + 1 : end;
     uint8_t* row = codes_out + nread * out_sites;
-    int64_t in_col = 0;
-    int64_t out_col = 0;
-    while (p < end && *p != '>') {
-      nl = find_nl(p, end);
-      for (const char* q = p; q < nl; ++q) {
-        char c = *q;
-        if (c == '\r' || c == ' ' || c == '\t') continue;
-        if (in_col >= in_sites) return -2;
-        bool keep = !mask || !mask[in_col];
-        in_col++;
-        if (!keep) continue;
-        uint8_t code = code_map[static_cast<uint8_t>(c)];
-        if (code == 0xFF) return -4;
-        if (out_col >= out_sites) return -2;
-        row[out_col++] = code;
+    int64_t first = -1;
+    int64_t last = -1;
+    nl = find_nl(p, end);
+    const char* next = nl < end ? nl + 1 : end;
+    if (nl - p == in_sites && (next == end || *next == '>') &&
+        !has_space(reinterpret_cast<const uint8_t*>(p), in_sites)) {
+      // one clean line of the full width: visit the kept columns only
+      const auto* line = reinterpret_cast<const uint8_t*>(p);
+      uint8_t bad = 0;
+      for (int64_t j = 0; j < out_sites; ++j) {
+        uint8_t c = line[cols[j]];
+        uint8_t code = code_map[c];
+        row[j] = code;
+        bad |= (code == 0xFF);
+        bool ng = c != '-';
+        last = ng ? j : last;
+        first = (ng && first < 0) ? j : first;
       }
-      p = nl < end ? nl + 1 : end;
+      if (bad) {
+        int64_t j = 0;
+        while (row[j] != 0xFF) j++;
+        meta[3] = nread;
+        meta[4] = line[cols[j]];
+        rc = -4;
+        break;
+      }
+      p = next;
+      n_gather++;
+    } else {
+      int64_t in_col = 0;
+      int64_t out_col = 0;
+      while (p < end && *p != '>' && rc == 0) {
+        nl = find_nl(p, end);
+        for (const char* q = p; q < nl; ++q) {
+          char c = *q;
+          if (c == '\r' || c == ' ' || c == '\t') continue;
+          if (in_col >= in_sites) {
+            rc = -2;
+            break;
+          }
+          bool keep = !mask || !mask[in_col];
+          in_col++;
+          if (!keep) continue;
+          uint8_t code = code_map[static_cast<uint8_t>(c)];
+          if (code == 0xFF) {
+            meta[3] = nread;
+            meta[4] = static_cast<uint8_t>(c);
+            rc = -4;
+            break;
+          }
+          if (out_col >= out_sites) {
+            rc = -2;
+            break;
+          }
+          if (c != '-') {
+            if (first < 0) first = out_col;
+            last = out_col;
+          }
+          row[out_col++] = code;
+        }
+        p = nl < end ? nl + 1 : end;
+      }
+      if (rc == 0 && (out_col != out_sites || in_col != in_sites)) rc = -2;
+      if (rc != 0) break;
+      n_loop++;
     }
-    if (out_col != out_sites || in_col != in_sites) return -2;
+    ranges_out[2 * nread] = first < 0 ? 0 : static_cast<int32_t>(first);
+    ranges_out[2 * nread + 1] =
+        first < 0 ? 0 : static_cast<int32_t>(last + 1 - first);
+    hash_out[nread] = row_hash(row, out_sites);
     nread++;
   }
+  meta[0] = label_off;
+  meta[1] = n_gather;
+  meta[2] = n_loop;
+  if (rc != 0) return rc;
   r->pos = p - r->data;
   return nread;
 }

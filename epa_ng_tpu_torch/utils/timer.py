@@ -18,6 +18,12 @@ CPU) never drop, so a long job's totals do not depend on the ring.
 ``cli.LAST_RUN_STATS`` and the CLI's stage line read the totals; a reader
 of the spans over a stretch of time (a traced run's window) takes them
 with :meth:`SpanRecorder.window`, which says when the ring dropped some.
+
+Beside the spans the recorder keeps running counts by name
+(:meth:`SpanRecorder.count`), which never drop either: how often a stage
+took one path or another (the reader's ``read.rows_gather`` and
+``read.rows_byteloop``, ``collapse.exact``), read with
+:meth:`SpanRecorder.counts`.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ class SpanRecorder:
         self._n = 0                     # spans ever recorded
         self._dropped_end = -1          # latest end of a dropped span
         self._totals: dict = {}         # name -> [count, wall_ns, cpu_ns]
+        self._counts: dict = {}         # name -> running count
         self._ids = itertools.count()
         self._lock = threading.Lock()
         self._local = threading.local()
@@ -140,6 +147,16 @@ class SpanRecorder:
         return [s for s in self.spans()
                 if s.end_ns > t0_ns and s.start_ns < t1_ns]
 
+    def count(self, name: str, n: int = 1):
+        """Add ``n`` to the running count ``name``."""
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counts(self) -> dict:
+        """name -> every running count so far."""
+        with self._lock:
+            return dict(self._counts)
+
     def totals(self) -> dict:
         """name -> (count, wall seconds, CPU seconds) of every span so far."""
         with self._lock:
@@ -159,3 +176,8 @@ def since(before: dict, after: dict) -> dict:
         if c > c0:
             out[k] = (c - c0, w - w0, u - u0)
     return out
+
+
+def counts_since(before: dict, after: dict) -> dict:
+    """The running counts between two ``counts()`` readings."""
+    return {k: n - before.get(k, 0) for k, n in after.items()}

@@ -130,6 +130,9 @@ def test_cli_stage_stats_are_the_recorder_totals(tmp_path, caplog):
                  "finalize.sync", "emit"):
         assert f" {name} " in line[0]
     assert "waiting for a chunk" in line[0] and "for the writer" in line[0]
+    # and the running counts: 24 one-line records, all gathered
+    assert LAST_RUN_STATS["counts"]["read.rows_gather"] == 24
+    assert "; counts: read.rows_gather 24, read.rows_byteloop 0" in line[0]
 
 
 def test_nested_spans_take_the_parent_chunk():
@@ -169,6 +172,25 @@ def test_since_counts_only_what_ran_between():
     assert timer.since(before, after) == {"read": (3, 3.0, 1.5),
                                           "dispatch": (3, 0.75, 0.5)}
     assert timer.since(after, after) == {}
+
+
+def test_counts_never_drop_and_read_between_two_readings():
+    rec = timer.SpanRecorder(capacity=2)
+    rec.count("read.rows_gather", 5000)
+    before = rec.counts()
+    for _ in range(10):
+        with rec.span("read"):
+            rec.count("read.rows_gather", 3)
+            rec.count("read.rows_byteloop", 1)
+    rec.count("collapse.exact")
+    assert rec.dropped == 8
+    assert rec.counts() == {"read.rows_gather": 5030,
+                            "read.rows_byteloop": 10, "collapse.exact": 1}
+    assert timer.counts_since(before, rec.counts()) == {
+        "read.rows_gather": 30, "read.rows_byteloop": 10,
+        "collapse.exact": 1}
+    # counts are not spans: the totals hold the spans alone
+    assert set(rec.totals()) == {"read"}
 
 
 # spans (name, start, end) recorded in the order they end, then the
