@@ -8,6 +8,13 @@
   ``<stem>`` the name before its first dot (``qps_noheur``,
   ``read_us_per_q.dyn`` -> ``read_us_per_q.py``); the module's
   ``read(run)`` returns the number or None when it finds nothing to read.
+  A reader of the program's own recorder (``epa_ng_tpu_torch.utils.timer``)
+  lists the names it reads there: ``SPANS = ("dispatch",)`` for span
+  names, ``COUNTS = (...)`` for count names. A program that never records
+  one of them in the run (an older one, or one without the recorder) does
+  not have what the metric measures: the run leaves the metric out and
+  names it, where a reader that declares nothing and reads nothing stops
+  the run (``run.silent_metrics``).
 
 A later cell adds files; none of these has to change.
 """
@@ -27,7 +34,7 @@ class Registry:
         self.base = base
         with open(spec_path or os.path.join(ROOT, "BENCHMARK.json")) as f:
             self.spec = json.load(f)
-        self._readers = {}
+        self._modules = {}
 
     def _json(self, *parts) -> dict:
         with open(os.path.join(self.base, *parts)) as f:
@@ -53,8 +60,8 @@ class Registry:
         return [m for m in self.spec[kind]
                 if workload in m.get("workloads", [workload])]
 
-    def reader(self, name: str):
-        if name not in self._readers:
+    def _module(self, name: str):
+        if name not in self._modules:
             path = os.path.join(self.base, "metrics", f"{name}.py")
             if not os.path.exists(path):
                 path = os.path.join(self.base, "metrics",
@@ -63,5 +70,15 @@ class Registry:
                 f"benchmark_metric_{name}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            self._readers[name] = mod.read
-        return self._readers[name]
+            self._modules[name] = mod
+        return self._modules[name]
+
+    def reader(self, name: str):
+        return self._module(name).read
+
+    def program_names(self, name: str) -> tuple:
+        """(span names, count names) the reader of ``name`` reads from the
+        program's recorder; both empty for a reader of anything else."""
+        mod = self._module(name)
+        return (tuple(getattr(mod, "SPANS", ())),
+                tuple(getattr(mod, "COUNTS", ())))

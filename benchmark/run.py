@@ -14,12 +14,19 @@ encode and collapse; ``place_encoded_async``; ``finalize_chunk``;
 ``JplaceWriter.write``, under ``StreamingPipeline``) cycling the pool from
 its start. It opens at the first read, stops reading after ``--seconds``,
 drains the chunks in flight and closes at the last jplace write; the rate
-is every read written over all of that time.
+is every read written over all of that time, and the card's time a read
+(``card_ms_per_kq``) the union of the device's operations in that time,
+from the profiler, which runs over every window on the card, over every
+read written.
 
 Then, with the program's state freed: the jplace parsed back and a sample
 of its reads, drawn from the seed, held against the plain reference
 (``benchmark/compare.py``). The last line of standard output is the
 result; the numbers compared, each beside its limit, close standard error.
+
+Exit codes: 2 without the card the cell asks for; 4 when a metric the cell
+lists reads nothing although the program records what it reads
+(``silent_metrics``); 3 when JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -131,11 +138,26 @@ class Window:
 
 
 class RunRecord:
-    """What a metric reader reads (``benchmark/metrics/<name>.py``)."""
+    """What a metric reader reads (``benchmark/metrics/<name>.py``).
+
+    From the program's own recorder (``epa_ng_tpu_torch.utils.timer``),
+    read just before the window opens and just after it closes:
+    ``program_totals`` (span name -> (count, wall s, thread CPU s) of the
+    spans that ran in between), ``program_counts`` (count name -> what it
+    grew by), ``program_run_totals`` / ``program_run_counts`` (the whole
+    run, warm-up included) and ``program_spans`` (the spans overlapping
+    the window, None when the recorder's ring dropped one). All None where
+    the program has no recorder.
+    """
 
     def __init__(self, **kw):
+        self.memory = 0
+        self.trace = False
         self.timeline = None
         self.newton = None
+        self.program_totals = self.program_counts = None
+        self.program_run_totals = self.program_run_counts = None
+        self.program_spans = None
         self.__dict__.update(kw)
 
     @property
@@ -144,6 +166,40 @@ class RunRecord:
 
     def span_us_per_query(self, stage: str) -> float:
         return self.spans.total_s(stage) * 1e6 / self.written
+
+    def program_cpu_us_per_query(self, name: str):
+        """Thread CPU microseconds a read written of the program's span
+        ``name`` over the window; None where it did not run there."""
+        t = (self.program_totals or {}).get(name)
+        if t is None or not self.written:
+            return None
+        return t[2] * 1e6 / self.written
+
+
+def program_recorder():
+    """The program's span recorder, or None where it has none."""
+    try:
+        from epa_ng_tpu_torch.utils import timer
+    except ImportError:
+        return None
+    return getattr(timer, "RECORDER", None)
+
+
+def spans_since(before: dict, after: dict) -> dict:
+    """The span totals (``RECORDER.totals()``) of the spans that ran
+    between two readings. The harness's own copy of ``timer.since``, as
+    the reduction from spans to metrics is the yardstick's."""
+    out = {}
+    for k, (c, w, u) in after.items():
+        c0, w0, u0 = before.get(k, (0, 0.0, 0.0))
+        if c > c0:
+            out[k] = (c - c0, w - w0, u - u0)
+    return out
+
+
+def counts_since(before: dict, after: dict) -> dict:
+    """What each count grew by between two readings."""
+    return {k: n - before.get(k, 0) for k, n in after.items()}
 
 
 def cli_argv(cfg: dict, mix: dict, paths: dict, outdir: str,
@@ -235,13 +291,15 @@ def check(ds, cfg, options, limits, jplace_path, attempted, seed, device):
 
 def measure(engine, options, paths, qry_info, invocation, tmp, seconds,
             trace, t_start, record):
-    """Warm-up chunk, then the window (with the profiler and the Newton
-    recorder when tracing); fills ``record`` and returns the window."""
+    """Warm-up chunk, then the window (with the profiler on the card, and
+    the Newton recorder when tracing); fills ``record`` and returns the
+    window."""
     import torch
     from benchmark.trace import DeviceTimeline, NewtonRecorder, Profiler
     from epa_ng_tpu_torch.ops import blo_kernel
     on_card = engine.device.type == "cuda"
     recorder = prof = None
+    program = program_recorder()
     if trace:
         recorder = NewtonRecorder(blo_kernel.blo_newton, engine.device)
         blo_kernel.blo_newton = recorder
@@ -255,19 +313,29 @@ def measure(engine, options, paths, qry_info, invocation, tmp, seconds,
         writer = writer_for(engine, options, tmp, "window.jplace",
                             invocation)
         win = Window(engine, options, paths["pool"], qry_info, writer)
+        if on_card:
+            # every run on the card traces the device: card_ms_per_kq is
+            # an end-to-end metric
+            prof = Profiler(recorder.stream if trace else None)
+            prof.start()
         if trace:
-            if on_card:
-                prof = Profiler(recorder.stream)
-                prof.start()
             recorder.recording = True
+        before = None if program is None else (program.totals(),
+                                               program.counts())
         cpu0 = host_cpu_s()
         win.run(seconds=seconds)
         record.host = (f"host: {(host_cpu_s() - cpu0) / win.seconds:.3f} "
                        f"cores busy in this process over the window")
+        if program is not None:
+            after = program.totals(), program.counts()
+            record.program_totals = spans_since(before[0], after[0])
+            record.program_counts = counts_since(before[1], after[1])
+            record.program_run_totals, record.program_run_counts = after
+            record.program_spans = program.window(win.t0_ns, win.t1_ns)
         if trace:
             recorder.recording = False
-            if prof is not None:
-                prof.stop()
+        if prof is not None:
+            prof.stop()
     finally:
         if recorder is not None:
             blo_kernel.blo_newton = recorder._kernel
@@ -278,24 +346,26 @@ def measure(engine, options, paths, qry_info, invocation, tmp, seconds,
     record.spans = win.spans
     if trace:
         record.newton = recorder.totals()
-        if prof is not None:
-            record.timeline = DeviceTimeline(prof.events(), win.t0_ns,
-                                             win.t1_ns)
+    if prof is not None:
+        record.timeline = DeviceTimeline(prof.events(), win.t0_ns, win.t1_ns)
     # the window keeps its counts and spans; the program's state goes
     win.engine = win.reader = win.writer = None
     return win
 
 
 def run(reg, workload: dict, seed: int, seconds: float, trace: bool,
-        device: str = "cuda", t_start: float = _T0) -> dict:
-    """One run of a cell; returns the result (the line's object)."""
+        device: str = "cuda", t_start: float = _T0,
+        record: RunRecord | None = None) -> dict:
+    """One run of a cell; returns the result (the line's object) and fills
+    ``record`` when one is given."""
     import torch
     from benchmark import compare, datagen
     cfg = reg.config(workload["config"])
     mix = reg.mix(workload["traffic"])
     limits = reg.limits(workload["name"])
     on_card = device == "cuda"
-    record = RunRecord(memory=0)
+    record = RunRecord() if record is None else record
+    record.trace = trace
     with tempfile.TemporaryDirectory(prefix="epa_bench_") as tmp:
         ds = datagen.generate(cfg, seed)
         paths = datagen.write_files(ds, tmp)
@@ -329,6 +399,9 @@ def run(reg, workload: dict, seed: int, seconds: float, trace: bool,
               "failed": int(failed), "metrics": metrics, "device": dev}
     tl = record.timeline
     if tl is not None:
+        print(f"device: busy {tl.busy_s!r} s of the window's "
+              f"{tl.window_s!r} s", file=sys.stderr)
+    if trace and tl is not None:
         dev["busy_s"], dev["window_s"] = tl.busy_s, tl.window_s
         ops = sorted(tl.time_by_name().items(), key=lambda kv: -kv[1])
         result["breakdown"] = {
@@ -375,6 +448,53 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN))
 
 
+def silent_metrics(reg, workload: dict, result: dict,
+                   record: RunRecord) -> tuple:
+    """(absent, silent): the metrics of the cell that this run left out of
+    its result. Absent: the reader names a span or count that the program
+    never recorded in the whole run, warm-up included, or the program has
+    no recorder; the program does not yet have what the metric measures
+    (an older program, such as a change's parent). Silent: every other
+    one; the program no longer runs what the harness instruments."""
+    kind = "per_layer" if record.trace else "end_to_end"
+    spans = record.program_run_totals
+    counts = record.program_run_counts
+    absent, silent = [], []
+    for m in reg.metrics(kind, workload["name"]):
+        if m["name"] in result["metrics"]:
+            continue
+        want_spans, want_counts = reg.program_names(m["name"])
+        lacking = (want_spans or want_counts) and (
+            spans is None or not set(want_spans) <= set(spans)
+            or not set(want_counts) <= set(counts))
+        (absent if lacking else silent).append(m["name"])
+    return absent, silent
+
+
+def finish(reg, workload: dict, result: dict, record: RunRecord) -> int:
+    """Judge what the run left out and what it loaded, and print the result
+    line when nothing stops it; returns the exit code."""
+    absent, silent = silent_metrics(reg, workload, result, record)
+    if absent:
+        print(f"metrics absent from this program: {absent}", file=sys.stderr)
+    if silent:
+        # the cell lists these metrics and the program records what they
+        # read: one that reads nothing means the program no longer runs
+        # what the harness instruments
+        print(f"metrics of this cell that read nothing: {silent}",
+              file=sys.stderr)
+        return 4
+    bad = forbidden_modules()
+    if bad:
+        print(f"modules of JAX or the JAX package were loaded: {bad}",
+              file=sys.stderr)
+        return 3
+    for k, v in result["checks"].items():
+        print(f"{k} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m benchmark.run")
     p.add_argument("--workload", required=True)
@@ -391,26 +511,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {workload['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result = run(reg, workload, args.seed, args.seconds, bool(args.trace))
+    record = RunRecord()
+    result = run(reg, workload, args.seed, args.seconds, bool(args.trace),
+                 record=record)
     print(f"card: {card_line()}", file=sys.stderr)
-    silent = [m["name"] for m in reg.metrics(
-        "per_layer" if args.trace else "end_to_end", args.workload)
-        if m["name"] not in result["metrics"]]
-    if silent:
-        # the cell lists these metrics: one that reads nothing means the
-        # program no longer runs what the harness instruments
-        print(f"metrics of this cell that read nothing: {silent}",
-              file=sys.stderr)
-        return 4
-    bad = forbidden_modules()
-    if bad:
-        print(f"modules of JAX or the JAX package were loaded: {bad}",
-              file=sys.stderr)
-        return 3
-    for k, v in result["checks"].items():
-        print(f"{k} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
-    print(json.dumps(result), flush=True)
-    return 0
+    return finish(reg, workload, result, record)
 
 
 if __name__ == "__main__":

@@ -96,3 +96,22 @@ def test_harness_imports_no_jax(path):
 def test_yardstick_imports_nothing_of_the_program(name):
     with open(os.path.join(HERE, f"{name}.py")) as f:
         assert "epa_ng_tpu" not in f.read()
+
+
+def test_card_time_is_the_window_busy_time_over_the_reads():
+    """``card_ms_per_kq``: the union of the device's operations in the
+    window, over every read written; nothing without a timeline."""
+    from benchmark.trace import DeviceTimeline
+    read = Registry().reader("card_ms_per_kq")
+    s = 10 ** 9
+    # two overlapping operations (0.5-1.5 s, 1.0-2.0 s) count once, and
+    # what lies outside the window [0, 3 s] not at all
+    events = [("gemm", 7, s // 2, 3 * s // 2), ("gather", 8, s, 2 * s),
+              ("copy", 7, 4 * s, 5 * s)]
+    tl = DeviceTimeline(events, 0, 3 * s)
+    run = type("R", (), {"timeline": tl, "written": 3000})
+    assert tl.busy_s == pytest.approx(1.5)
+    assert read(run) == pytest.approx(1.5e3 / 3)
+    assert read(type("R", (), {"timeline": None, "written": 3000})) is None
+    idle = DeviceTimeline([], 0, 3 * s)
+    assert read(type("R", (), {"timeline": idle, "written": 3000})) is None

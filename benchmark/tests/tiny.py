@@ -51,7 +51,7 @@ def tiny_registry(tmp_path, config: str = "neotrop-gtr-g4",
     spec["workloads"].append({"name": CELL, "config": "tiny",
                               "traffic": "tiny" + traffic, "chips": 1,
                               "why": "a cell the CPU tests hold"})
-    rate = "qps" if traffic == "dyn" else "qps_noheur"
+    rate = "card_ms_per_kq" if traffic == "dyn" else "qps_noheur"
     _add_mix_metrics(spec, traffic, rate)
     for m in spec["end_to_end"] + spec["per_layer"]:
         if m["name"] in ("setup_s", "build_s", rate) or m["name"].endswith(
@@ -63,13 +63,14 @@ def tiny_registry(tmp_path, config: str = "neotrop-gtr-g4",
 
 
 def _add_mix_metrics(spec: dict, traffic: str, rate: str):
-    """Where ``BENCHMARK.json`` has no cell of this mix, its metrics as
-    the ``dyn`` ones with the mix's suffix, moving the mix's rate (the
-    readers are the same files)."""
+    """Where ``BENCHMARK.json`` has no cell of this mix, its rate as an
+    end-to-end metric and its per-layer metrics as the ``dyn`` ones with
+    the mix's suffix, moving the rate (the readers are the same files)."""
     names = {m["name"] for m in spec["end_to_end"] + spec["per_layer"]}
     if rate not in names:
-        qps = next(m for m in spec["end_to_end"] if m["name"] == "qps")
-        spec["end_to_end"].append(dict(qps, name=rate, workloads=[]))
+        spec["end_to_end"].append({
+            "name": rate, "unit": "queries/s", "better": "higher",
+            "bound": 0.25, "source": "host_clock", "workloads": []})
     for m in list(spec["per_layer"]):
         stem, dot, mix = m["name"].partition(".")
         if mix == "dyn" and f"{stem}.{traffic}" not in names:
