@@ -36,8 +36,11 @@ LAST_RUN_STATS: dict = {}
 STAGES = ("read", "read.scan", "dispatch", "write", "finalize",
           "finalize.sync", "emit")
 # and its running counts: the native reader's records by path, and the
-# chunks that the duplicate pre-screen sent to the exact comparison
+# chunks that the duplicate pre-screen sent to the exact comparison (the
+# engine's own follow them, core/engine.py COUNTS)
 COUNTS = ("read.rows_gather", "read.rows_byteloop", "collapse.exact")
+# the reference-state build's spans (core/engine.py), in the same line
+BUILD_STAGES = ("build.clv", "build.lookup", "build.blo")
 
 BANNER = r"""
     ______ ____   ___  ______ ____   __  __      ______ ____   __  __
@@ -420,10 +423,17 @@ def _place(args, options, invocation, start_all) -> int:
     if args.compute_dtype is None:
         options.compute_dtype = _default_dtype(args.device)
 
+    from epa_ng_tpu_torch.core.engine import COUNTS as ENGINE_COUNTS
     from epa_ng_tpu_torch.core.engine import (PlacementEngine,
                                               _check_device_model)
     from epa_ng_tpu_torch.io import fasta as fio
     from epa_ng_tpu_torch.models import Model
+    from epa_ng_tpu_torch.utils import timer
+
+    # the recorder before the build: the stage line's build spans and
+    # state bytes are what it adds
+    spans_at_build = timer.RECORDER.totals()
+    counts_at_build = timer.RECORDER.counts()
 
     # under --mesh the reference state is BUILT on the CPU (host RAM) in
     # the run's dtype and only its ep shards reach the cards (attach_mesh):
@@ -591,7 +601,6 @@ def _place(args, options, invocation, start_all) -> int:
     from epa_ng_tpu_torch.io.jplace import JplaceWriter
     from epa_ng_tpu_torch.ops.blo_kernel import blo_newton
     from epa_ng_tpu_torch.parallel import dist
-    from epa_ng_tpu_torch.utils import timer
 
     # --adaptive-split: rate-proportional query shards (the runtime
     # consumer of the scheduling math, parallel.schedule). Each process
@@ -687,6 +696,9 @@ def _place(args, options, invocation, start_all) -> int:
     writer.close()
     stages = timer.since(spans_before, timer.RECORDER.totals())
     counts = timer.counts_since(counts_before, timer.RECORDER.counts())
+    built = timer.since(spans_at_build, spans_before)
+    state_bytes = timer.counts_since(counts_at_build, counts_before).get(
+        "state.bytes", 0)
     wall = lambda k: stages.get(k, (0, 0.0, 0.0))[1]
     memory = {}
     if on_card:
@@ -695,10 +707,14 @@ def _place(args, options, invocation, start_all) -> int:
                       device_peak_mb=(torch.cuda.max_memory_allocated(device)
                                       / 1e6))
     log.info("Stage times, wall / CPU: %s; waiting for a chunk %.2fs, for "
-             "the writer %.2fs; counts: %s", ", ".join(
+             "the writer %.2fs; counts: %s; build: %s, state %d bytes",
+             ", ".join(
                  "%s %.2fs / %.2fs" % (k, *stages.get(k, (0, 0.0, 0.0))[1:])
                  for k in STAGES), wall("wait_chunk"), wall("wait_writer"),
-             ", ".join("%s %d" % (k, counts.get(k, 0)) for k in COUNTS))
+             ", ".join("%s %d" % (k, counts.get(k, 0))
+                       for k in COUNTS + ENGINE_COUNTS),
+             ", ".join("%s %.2fs" % (k, built.get(k, (0, 0.0, 0.0))[1])
+                       for k in BUILD_STAGES), state_bytes)
 
     if pcount > 1:
         dist.barrier()

@@ -45,9 +45,29 @@ from epa_ng_tpu_torch.ops import clv as clv_ops
 from epa_ng_tpu_torch.ops import eigen, likelihood, lookup, newton
 from epa_ng_tpu_torch.tree.tree import Tree
 from epa_ng_tpu_torch.utils.options import Options
-from epa_ng_tpu_torch.utils.timer import span
+from epa_ng_tpu_torch.utils.timer import RECORDER, span
 
 log = logging.getLogger("epa_ng_tpu_torch")
+
+# the engine's running counts in the recorder (utils/timer.py), each
+# recorded at 0 when an engine is built so that one that never fires still
+# shows: chunks dispatched to the fused step, those the wide-budget ladder
+# rescued, those surrendered to the exact path; the fused step's Newton
+# kernel launches, and those whose sumtable lives in device memory
+# (parallel/mesh.py)
+COUNTS = ("fused.chunks", "fused.escalated", "fused.exact_chunks",
+          "newton.launches", "newton.launches_wide")
+
+
+@contextlib.contextmanager
+def _build_span(name: str, device: torch.device):
+    """A span of the reference-state build; on the card it closes after
+    the device has finished the stage, so its wall time is the stage's
+    device time (a sync at set-up only)."""
+    with span(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class PlacementEngine:
@@ -130,10 +150,11 @@ class PlacementEngine:
         if inv_logterm is not None and self._pat_first_idx is not None:
             inv_logterm = inv_logterm[self._index(self._pat_first_idx)]
 
-        self.edges, ref_logl = clv_ops.build_reference_state(
-            tree, self.eig, tip_clvs, dtype=self.dtype,
-            inv_logterm=inv_logterm, site_weights=site_weights,
-            device=self.device)
+        with _build_span("build.clv", self.device):
+            self.edges, ref_logl = clv_ops.build_reference_state(
+                tree, self.eig, tip_clvs, dtype=self.dtype,
+                inv_logterm=inv_logterm, site_weights=site_weights,
+                device=self.device)
         self._finish_init(ref_logl)
 
     @classmethod
@@ -232,6 +253,8 @@ class PlacementEngine:
     def _finish_init(self, ref_logl: Optional[float] = None):
         self._sharded = None
         self._escalations = 0  # chunks rescued by the wide-budget ladder
+        for name in COUNTS:
+            RECORDER.count(name, 0)
         # the Newton work the CUDA kernel executed, from its own counters
         # (zero where the torch twin ran instead), and the twin's calls
         self.newton_work = blo_kernel.NewtonWork(self.device)
@@ -267,8 +290,11 @@ class PlacementEngine:
         # eigen-transformed BLO store; the raw edge CLVs (2x the BLO
         # store's footprint) are freed once both are derived
         if not self.options.dump_binary_mode:
-            _ = self.lookup_table
-            _ = self.blo
+            table = self.lookup_table
+            state = (list(table) if isinstance(table, tuple) else [table])
+            state += list(self.blo)
+            # the device bytes the placement state holds after the build
+            RECORDER.count("state.bytes", sum(t.nbytes for t in state))
             self.edges = None
 
     # ------------------------------------------------------------------
@@ -345,13 +371,13 @@ class PlacementEngine:
                 # function of the column pattern too
                 inv_chars = inv_chars[:, self._index(self._pat_first_idx)]
                 site_map = self._index(self._site2pat)
-            table = lookup.build_lookup_tables(
-                self.consts, et.U, et.lsU, et.V, et.lsV, et.lengths,
-                self._char_clvs, inv_chars, site_map)
-            if self.options.lookup_dtype == "bf16":
-                self._lookup_table = lookup.split_table(table, torch.bfloat16)
-            else:
-                self._lookup_table = table
+            with _build_span("build.lookup", self.device):
+                table = lookup.build_lookup_tables(
+                    self.consts, et.U, et.lsU, et.V, et.lsV, et.lengths,
+                    self._char_clvs, inv_chars, site_map)
+                if self.options.lookup_dtype == "bf16":
+                    table = lookup.split_table(table, torch.bfloat16)
+            self._lookup_table = table
         return self._lookup_table
 
     @property
@@ -362,9 +388,10 @@ class PlacementEngine:
             et = self.edges
             site_map = (None if self._site2pat is None
                         else self._index(self._site2pat))
-            self._blo = newton.transform_edges(
-                self.consts, et.U, et.lsU, et.V, et.lsV, et.lengths,
-                site_map)
+            with _build_span("build.blo", self.device):
+                self._blo = newton.transform_edges(
+                    self.consts, et.U, et.lsU, et.V, et.lsV, et.lengths,
+                    site_map)
         return self._blo
 
     def _query_tensors_codes(self, codes: np.ndarray):
@@ -508,6 +535,7 @@ class PlacementEngine:
             if topk < self.num_edges:
                 state = self._dispatch_chunk_fused(ec, seq_id_offset,
                                                    mode, topk)
+                RECORDER.count("fused.chunks")
                 return ("fused", state)
         return ("exact", (ec, seq_id_offset))
 
@@ -570,8 +598,10 @@ class PlacementEngine:
                     result = self._finalize_chunk_fused(state2)
                     if result is not None:
                         self._escalations += 1
+                        RECORDER.count("fused.escalated")
                         return result
                     topk = k2
+            RECORDER.count("fused.exact_chunks")
         else:
             ec, seq_id_offset = state
         return self._place_chunk_exact(ec, seq_id_offset)

@@ -262,6 +262,17 @@ def max_shared_sites(rk: int, has_pinv: bool = False, num_states: int = 4,
     return room // (rows * 4) // 32 * 32
 
 
+def t_in_device_memory(consts, width: int, has_pinv: bool = False) -> bool:
+    """Whether a launch at sumtable width ``width`` keeps each pair's T in
+    the device-memory scratch rather than in shared memory
+    (:func:`kernel_geometry`'s ``t_shared``, for the model ``consts``
+    holds): past :func:`max_shared_sites`."""
+    k = int(consts.A.shape[-1])
+    r = int(consts.rates.shape[0])
+    return not kernel_geometry(k, r, width, consts.A.ndim == 3 and r > 1,
+                               has_pinv)["t_shared"]
+
+
 def kernel_width(spans) -> int:
     """The kernel's sumtable width for pairs with these spans: the widest
     span rounded up to 32 (each pair reads only its own window)."""

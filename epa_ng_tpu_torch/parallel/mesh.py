@@ -39,10 +39,12 @@ import torch
 
 from epa_ng_tpu_torch.ops import newton
 from epa_ng_tpu_torch.ops.blo_kernel import (
-    PB, blo_optimize_batch_kernel, blo_optimize_batch_kernel_blocked)
+    PB, blo_optimize_batch_kernel, blo_optimize_batch_kernel_blocked,
+    t_in_device_memory)
 # one shared implementation of the preplacement contraction (the fused
 # step and the exact path must rank candidates identically)
 from epa_ng_tpu_torch.ops.lookup import preplace_scores_core as _preplace_scores
+from epa_ng_tpu_torch.utils.timer import RECORDER
 
 
 def _topk(scores, topk: int):
@@ -329,6 +331,12 @@ def _newton_blocked_kernel(consts, tU, tV, ls, lengths, tQ, flat_e, q_ids0,
     kw = dict(block_width=Wb, counters=work is not None)
     if has_pinv:
         kw.update(invq=invq, ls=ls)
+    # the recorder's counts of this step's launches (host-side): all of
+    # them, and those whose sumtable lives in device memory
+    wide = t_in_device_memory(consts, Wb, has_pinv)
+    launches = 1 + two_phase
+    RECORDER.count("newton.launches", launches)
+    RECORDER.count("newton.launches_wide", launches * wide)
     outA = blo_optimize_batch_kernel_blocked(
         consts, tU, tV, tQ, flat_e_p, q_ids_p, pb_p, sp_p, orig_p,
         ls_sum, max_smoothings=p1, skip=1.0 - fits.to(dtype),
